@@ -36,6 +36,10 @@ SIGNATURES = {
     # maxp, scale, softcap, stream
     "paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
                         _F, _P],
+    # x, dt, A, Bm, Cm, initial_state (or NULL), y, final_state, B, S, H,
+    # G, P, N, chunk, stream
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                 _P],
 }
 
 _lock = threading.Lock()

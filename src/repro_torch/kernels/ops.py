@@ -1,4 +1,4 @@
-"""Public attention entry points: one dispatch rule for every kernel.
+"""Public kernel entry points: one dispatch rule for every kernel.
 
 A wrapper takes tensors that lie on the CPU to the kernel's plain version
 and tensors on a CUDA device to the hand-written kernel.  There is no
@@ -12,11 +12,13 @@ from typing import Dict
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
+from repro_torch.kernels import ssd_scan as _ssd
 
 # kernel name -> its CUDA wrapper (each counts its launches)
 CUDA_WRAPPERS = {
     "flash_attention": _fa.flash_attention_cuda,
     "paged_attention": _pa.paged_attention_cuda,
+    "ssd_scan": _ssd.ssd_scan_cuda,
 }
 
 
@@ -26,7 +28,7 @@ def _on_cuda(*tensors) -> bool:
         return True
     if kinds == {"cpu"}:
         return False
-    raise ValueError(f"attention inputs must all lie on the CPU or all on "
+    raise ValueError(f"kernel inputs must all lie on the CPU or all on "
                      f"one CUDA device, got {sorted(kinds)}")
 
 
@@ -43,6 +45,18 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths, **kw):
     if _on_cuda(*args):
         return _pa.paged_attention_cuda(*args, **kw)
     return _pa.paged_attention_plain(*args, **kw)
+
+
+def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
+    """Mamba-2 SSD chunked scan; see ``kernels.ssd_scan``.  Returns
+    (y [B,S,H,P] in x's dtype, final state [B,H,P,N] fp32)."""
+    args = (x, dt, A, Bm, Cm)
+    extra = () if initial_state is None else (initial_state,)
+    if _on_cuda(*args, *extra):
+        return _ssd.ssd_scan_cuda(*args, chunk=chunk,
+                                  initial_state=initial_state)
+    return _ssd.ssd_scan_plain(*args, chunk=chunk,
+                               initial_state=initial_state)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -1,12 +1,14 @@
-"""Plain-torch oracles for the attention kernels (the allclose references).
+"""Plain-torch oracles for the kernels (the allclose references).
 
-Deliberately naive: they materialise the full score matrix in fp32, so
-they are obviously correct and independent of the kernels' tiling.  Same
-signatures and layouts as the JAX package's ``kernels/ref.py``.
+Deliberately naive: the attention oracles materialise the full score
+matrix in fp32 and the SSD oracle steps the recurrence one token at a
+time, so they are obviously correct and independent of the kernels'
+tiling.  Same signatures and layouts as the JAX package's
+``kernels/ref.py``.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -77,3 +79,31 @@ def ref_flash_attention(q, k, v, *, causal: bool = True, scale: float,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgqk,bkhd->bqhgd", p, v.float())
     return o.reshape(B, S, H, D).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 SSD scan: sequential (timestep-by-timestep) reference
+# ---------------------------------------------------------------------------
+
+
+def ref_ssd(x, dt, A, Bm, Cm,
+            initial_state=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, H, P]; dt: [B, S, H] (>=0); A: [H] (<0);
+    Bm/Cm: [B, S, G, N].  Sequential recurrence:
+        h_t = exp(dt_t A) h_{t-1} + dt_t B_t x_t^T ;  y_t = C_t . h_t
+    Returns (y [B, S, H, P], final_state [B, H, P, N])."""
+    b, S, H, Pd = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Bh = Bm.repeat_interleave(rep, dim=2).float()           # [b,S,H,N]
+    Ch = Cm.repeat_interleave(rep, dim=2).float()
+    xf, dtf, Af = x.float(), dt.float(), A.float()
+    h = (torch.zeros((b, H, Pd, N), device=x.device)
+         if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        decay = torch.exp(dtf[:, t] * Af[None, :])           # [b,H]
+        dBx = torch.einsum("bh,bhn,bhp->bhpn", dtf[:, t], Bh[:, t], xf[:, t])
+        h = decay[..., None, None] * h + dBx
+        ys.append(torch.einsum("bhpn,bhn->bhp", h, Ch[:, t]))
+    return torch.stack(ys, 1).to(x.dtype), h

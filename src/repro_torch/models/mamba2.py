@@ -1,0 +1,267 @@
+"""Mamba-2 mixer: SSD (state-space duality) with chunked scan.
+
+The twin of ``repro/models/mamba2.py`` (arXiv:2405.21060 §6): within a
+chunk the recurrence is dense matmuls with a decay mask, across chunks a
+loop carries the ``[H, P, N]`` state, and decode is the O(1) recurrent
+update.  Dtypes follow the JAX side step by step: the conv history and the
+SSM state are fp32, ``xs``/``B``/``C`` bf16 (the model's working type),
+``dt`` fp32 after softplus, and ``y + D·xs`` promotes to fp32 before the
+gated RMSNorm.
+
+The JAX model never calls its Pallas kernel; the port goes one step
+further, as it does for attention.  With ``attn_impl="kernel"`` (the
+default) prefill's scan goes through ``kernels.ops.ssd_scan``: the
+hand-written CUDA kernel for CUDA tensors, its plain version for CPU
+tensors.  ``attn_impl="plain"`` runs ``ssd_chunked``, the twin of the JAX
+model's own scan, on either device.  Decode and the depthwise conv are
+plain torch on both paths (plain JAX there too).
+
+Caches are written in place (the JAX twin returns new ones): prefill and
+decode copy the new conv tail and state into the layer's cache views.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
+from repro_torch.models.layers import dense_param
+
+
+def _dims(cfg: ModelConfig):
+    s = cfg.ssm
+    d_inner = s.expand * cfg.d_model
+    nheads = d_inner // s.head_dim
+    conv_dim = d_inner + 2 * s.ngroups * s.state_dim
+    return d_inner, nheads, conv_dim
+
+
+def mamba_params(cfg: ModelConfig, gen: torch.Generator, *, device,
+                 lead=()) -> Dict:
+    s = cfg.ssm
+    d = cfg.d_model
+    d_inner, nheads, conv_dim = _dims(cfg)
+    d_in_proj = 2 * d_inner + 2 * s.ngroups * s.state_dim + nheads
+    f32 = dict(device=device, dtype=torch.float32)
+    # A init in [1, 16) (mamba2 default); dt_bias a constant, as the JAX twin
+    a_init = torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
+    return {
+        "in_proj": dense_param(gen, (d, d_in_proj), device=device,
+                               lead=lead),
+        "conv_w": dense_param(gen, (s.conv_width, conv_dim), device=device,
+                              lead=lead, fan_in=s.conv_width),
+        "conv_b": torch.zeros((*lead, conv_dim), **f32),
+        "A_log": a_init.expand(*lead, nheads).clone(),
+        "D": torch.ones((*lead, nheads), **f32),
+        "dt_bias": torch.zeros((*lead, nheads), **f32),
+        "norm_scale": torch.ones((*lead, d_inner), **f32),
+        "out_proj": dense_param(gen, (d_inner, d), device=device, lead=lead,
+                                fan_in=d_inner),
+    }
+
+
+def mamba_cache_init(cfg: ModelConfig, batch: int, *, device,
+                     lead=()) -> Dict:
+    s = cfg.ssm
+    _, nheads, conv_dim = _dims(cfg)
+    f32 = dict(device=device, dtype=torch.float32)
+    return {
+        "conv": torch.zeros((*lead, batch, s.conv_width - 1, conv_dim),
+                            **f32),
+        "ssm": torch.zeros((*lead, batch, nheads, s.head_dim, s.state_dim),
+                           **f32),
+    }
+
+
+# ----------------------------------------------------------------- SSD core
+
+
+def _segsum(x):
+    """x: [..., l] -> [..., l, l]; out[i,j] = sum_{k in (j, i]} x_k, -inf
+    above the diagonal."""
+    n = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((n, n), dtype=torch.bool, device=x.device).tril()
+    return torch.where(mask, seg, -torch.inf)
+
+
+def ssd_chunked(x, dt, A, B, C, chunk: int, initial_state=None):
+    """Chunked SSD scan (the JAX model's own; a loop stands in for its
+    ``lax.scan`` over chunks).
+
+    x: [b, S, h, p] (pre-dt);  dt: [b, S, h] (post-softplus);  A: [h] (<0);
+    B, C: [b, S, g, n] (broadcast over h // g heads per group).
+    Returns (y [b, S, h, p] in x's dtype, final_state [b, h, p, n] fp32).
+    """
+    b, S, h, p = x.shape
+    g, n = B.shape[2], B.shape[3]
+    rep = h // g
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        B = F.pad(B, (0, 0, 0, 0, 0, pad))
+        C = F.pad(C, (0, 0, 0, 0, 0, pad))
+    Sp = x.shape[1]
+    c = Sp // chunk
+
+    Bh = B.repeat_interleave(rep, dim=2).float()              # [b, Sp, h, n]
+    Ch = C.repeat_interleave(rep, dim=2).float()
+    xq = (x.float() * dt[..., None]).reshape(b, c, chunk, h, p)  # dt folded
+    dA = (dt * A[None, None, :]).reshape(b, c, chunk, h)
+    dA = dA.movedim(3, 1)                                     # [b,h,c,l]
+    Bc = Bh.reshape(b, c, chunk, h, n)
+    Cc = Ch.reshape(b, c, chunk, h, n)
+
+    dA_cum = torch.cumsum(dA, dim=-1)                         # [b,h,c,l]
+    L = torch.exp(_segsum(dA))                                # [b,h,c,l,l]
+
+    # intra-chunk (diagonal blocks)
+    scores = torch.einsum("bclhn,bcshn->bhcls", Cc, Bc)
+    y_diag = torch.einsum("bhcls,bcshp->bclhp", scores * L, xq)
+
+    # per-chunk terminal states
+    decay_states = torch.exp(dA_cum[..., -1:] - dA_cum)       # [b,h,c,l]
+    states = torch.einsum("bclhn,bhcl,bclhp->bchpn", Bc, decay_states, xq)
+
+    # inter-chunk recurrence
+    chunk_decay = torch.exp(dA_cum[..., -1])                  # [b,h,c]
+    state = (torch.zeros((b, h, p, n), device=x.device)
+             if initial_state is None else initial_state.float())
+    prevs = []
+    for k in range(c):
+        prevs.append(state)
+        state = states[:, k] + chunk_decay[:, :, k, None, None] * state
+    prev_states = torch.stack(prevs, 1)                       # [b,c,h,p,n]
+
+    # off-diagonal: y_off[t] = C_t . (exp(dA_cum[t]) * prev_state)
+    state_decay = torch.exp(dA_cum)                           # [b,h,c,l]
+    y_off = torch.einsum("bclhn,bchpn,bhcl->bclhp", Cc, prev_states,
+                         state_decay)
+
+    y = (y_diag + y_off).reshape(b, Sp, h, p)[:, :S]
+    return y.to(x.dtype), state
+
+
+def ssd_decode_step(state, x_t, dt_t, A, B_t, C_t):
+    """O(1) recurrent update for one token.
+
+    state: [b, h, p, n]; x_t: [b, h, p]; dt_t: [b, h]; A: [h];
+    B_t, C_t: [b, g, n].  Returns (y [b, h, p], new_state).
+    """
+    h = state.shape[1]
+    rep = h // B_t.shape[1]
+    Bh = B_t.repeat_interleave(rep, dim=1).float()            # [b,h,n]
+    Ch = C_t.repeat_interleave(rep, dim=1).float()
+    dA = torch.exp(dt_t * A[None, :])                         # [b,h]
+    dBx = torch.einsum("bh,bhn,bhp->bhpn", dt_t, Bh, x_t.float())
+    new_state = dA[..., None, None] * state + dBx
+    y = torch.einsum("bhpn,bhn->bhp", new_state, Ch)
+    return y.to(x_t.dtype), new_state
+
+
+# ------------------------------------------------------------- full mixer
+
+
+def _causal_conv_full(xBC, w, bias):
+    """Depthwise causal conv.  xBC: [B, S, C]; w: [W, C] -> [B, S, C]."""
+    W = w.shape[0]
+    pad = F.pad(xBC, (0, 0, W - 1, 0))
+    out = sum(pad[:, i:i + xBC.shape[1], :] * w[i][None, None, :]
+              for i in range(W))
+    return out + bias[None, None, :]
+
+
+def _gated_out(p: Dict, y, z, dtype):
+    """Gated RMSNorm (fp32) then the out-projection."""
+    gated = y * F.silu(z)
+    gf = gated.float()
+    var = gf.square().mean(-1, keepdim=True)
+    y = (gf * torch.rsqrt(var + 1e-6) * p["norm_scale"]).to(dtype)
+    return torch.einsum("...e,ed->...d", y, p["out_proj"])
+
+
+def mamba_forward(cfg: ModelConfig, p: Dict, x,
+                  cache: Optional[Dict] = None, *,
+                  attn_impl: str = "kernel"):
+    """Full-sequence (train / prefill) mamba mixer.  x: [B, S, d].
+    Returns (y, cache): the cache's conv tail and state written in place,
+    or None."""
+    s = cfg.ssm
+    d_inner, nheads, conv_dim = _dims(cfg)
+    B_, S, _ = x.shape
+
+    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    z, xBC, dt = torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
+
+    conv_in = xBC.float()
+    w = p["conv_w"].float()
+    if cache is not None:
+        conv_in = torch.cat([cache["conv"], conv_in], dim=1)
+        conv_out = _causal_conv_full(conv_in, w,
+                                     p["conv_b"])[:, s.conv_width - 1:]
+    else:
+        conv_out = _causal_conv_full(conv_in, w, p["conv_b"])
+    xBC = F.silu(conv_out).to(x.dtype)
+
+    gn = s.ngroups * s.state_dim
+    xs, Bmat, Cmat = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    xs = xs.reshape(B_, S, nheads, s.head_dim).contiguous()
+    Bmat = Bmat.reshape(B_, S, s.ngroups, s.state_dim).contiguous()
+    Cmat = Cmat.reshape(B_, S, s.ngroups, s.state_dim).contiguous()
+    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
+    A = -torch.exp(p["A_log"])
+
+    init_state = cache["ssm"] if cache is not None else None
+    if attn_impl == "plain":
+        y, final_state = ssd_chunked(xs, dt, A, Bmat, Cmat, s.chunk_size,
+                                     initial_state=init_state)
+    else:
+        y, final_state = ops.ssd_scan(xs, dt, A, Bmat, Cmat,
+                                      chunk=s.chunk_size,
+                                      initial_state=init_state)
+    y = y + p["D"][None, None, :, None] * xs                  # fp32
+    out = _gated_out(p, y.reshape(B_, S, d_inner), z, x.dtype)
+
+    if cache is not None:
+        if s.conv_width > 1:
+            cache["conv"].copy_(conv_in[:, 1 - s.conv_width:])
+        cache["ssm"].copy_(final_state)
+    return out, cache
+
+
+def mamba_decode(cfg: ModelConfig, p: Dict, x, cache: Dict):
+    """One-token decode.  x: [B, 1, d].  Returns (y [B,1,d], cache) with
+    the cache updated in place."""
+    s = cfg.ssm
+    d_inner, nheads, conv_dim = _dims(cfg)
+    B_ = x.shape[0]
+
+    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # [B, e]
+    z, xBC, dt = torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
+
+    # conv ring update
+    conv_hist = torch.cat([cache["conv"], xBC.float()[:, None, :]], dim=1)
+    w = p["conv_w"].float()                                   # [W, C]
+    conv_out = torch.einsum("bwc,wc->bc", conv_hist, w) + p["conv_b"][None]
+    xBC = F.silu(conv_out).to(x.dtype)
+
+    gn = s.ngroups * s.state_dim
+    xs, Bmat, Cmat = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    xs = xs.reshape(B_, nheads, s.head_dim)
+    Bmat = Bmat.reshape(B_, s.ngroups, s.state_dim)
+    Cmat = Cmat.reshape(B_, s.ngroups, s.state_dim)
+    dt = F.softplus(dt.float() + p["dt_bias"][None, :])
+    A = -torch.exp(p["A_log"])
+
+    y, new_state = ssd_decode_step(cache["ssm"], xs, dt, A, Bmat, Cmat)
+    y = y + p["D"][None, :, None] * xs                        # fp32
+    out = _gated_out(p, y.reshape(B_, d_inner), z, x.dtype)[:, None, :]
+
+    cache["conv"].copy_(conv_hist[:, 1:])
+    cache["ssm"].copy_(new_state)
+    return out, cache

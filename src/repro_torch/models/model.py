@@ -1,16 +1,19 @@
-"""Model API for the dense decoder-only slice of the port.
+"""Model API for the port's slices: the dense decoder and attention-free
+Mamba-2.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are functions of
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
     forward(params, batch)          -> (hidden [B,S,d], aux)  (teacher-forced)
-    init_cache(B, max_len, device=) -> cache (list of stacked K/V dicts)
+    init_cache(B, max_len, device=) -> cache (list of stacked K/V dicts,
+                                       or conv/ssm state dicts for Mamba)
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
-The slice covers the dense decoder olmo-1b needs.  A config that uses a
-feature outside it is refused when the ``Model`` is built, naming the
+The slices cover the dense decoder olmo-1b needs and the attention-free
+Mamba-2 stack of mamba2-780m.  A config that uses a feature outside them
+is refused when the ``Model`` is built, naming the
 ROADMAP item that brings it, so nothing outside the slice is computed
 silently wrong.
 """
@@ -36,12 +39,12 @@ def _unported(cfg: ModelConfig) -> str:
     (queue 1), or ''."""
     if cfg.moe is not None:
         return "MoE FFNs (item 7)"
-    if cfg.family in (Family.SSM, Family.HYBRID) or cfg.attn_every:
-        return "SSM / hybrid mixers (item 8)"
+    if cfg.family == Family.HYBRID or cfg.attn_every:
+        return "hybrid SSM/attention stacks (item 8)"
     if cfg.is_encdec:
         return "encoder-decoder (item 9)"
-    if cfg.family == Family.VLM or cfg.frontend_stub \
-            or cfg.pos_emb != PosEmb.ROPE:
+    if cfg.family == Family.VLM or cfg.frontend_stub or (
+            cfg.pos_emb != PosEmb.ROPE and not cfg.attention_free):
         return "VLM embeds and non-RoPE positions (item 6)"
     if cfg.kv_cache_dtype == "int8":
         return "int8 KV caches (item 6)"
@@ -55,7 +58,10 @@ def _unported(cfg: ModelConfig) -> str:
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ModelConfig
-    attn_impl: str = "kernel"   # "kernel" | "plain", see models/layers.py
+    # "kernel" | "plain": the hand-written kernels (prefill and decode
+    # attention, the SSD scan) or the JAX model's own plain versions; see
+    # models/layers.py and models/mamba2.py
+    attn_impl: str = "kernel"
 
     def __post_init__(self):
         missing = _unported(self.cfg)

@@ -1,4 +1,4 @@
-"""Decoder stack for the dense decoder-only family.
+"""Decoder stack for the dense decoder-only and attention-free SSM families.
 
 The stack is described by a repeating **block pattern** (``block_pattern``
 is copied from the JAX package, so both sides name the same blocks).  As
@@ -14,6 +14,7 @@ from typing import Dict, List, Optional
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import mamba2 as M
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,10 +71,15 @@ def _layer(tree: Dict, r: int) -> Dict:
 def _block_init(cfg: ModelConfig, desc: BlockDesc, gen, R: int,
                 device) -> Dict:
     kw = dict(device=device, lead=(R,))
-    return {"norm_mixer": L.norm_init(cfg, cfg.d_model, **kw),
-            "attn": L.attention_params(cfg, gen, **kw),
-            "norm_ffn": L.norm_init(cfg, cfg.d_model, **kw),
-            "mlp": L.mlp_params(cfg, gen, **kw)}
+    p = {"norm_mixer": L.norm_init(cfg, cfg.d_model, **kw)}
+    if desc.mixer == "mamba":
+        p["mamba"] = M.mamba_params(cfg, gen, **kw)
+    else:
+        p["attn"] = L.attention_params(cfg, gen, **kw)
+    if desc.ffn != "none":
+        p["norm_ffn"] = L.norm_init(cfg, cfg.d_model, **kw)
+        p["mlp"] = L.mlp_params(cfg, gen, **kw)
+    return p
 
 
 def stack_init(cfg: ModelConfig, gen, *, device) -> List[Dict]:
@@ -85,9 +91,10 @@ def stack_init(cfg: ModelConfig, gen, *, device) -> List[Dict]:
 
 def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
                      device) -> List[Dict]:
-    R = num_repeats(cfg)
-    return [L.kv_cache_init(cfg, batch, max_len, device=device, lead=(R,))
-            for _ in block_pattern(cfg)]
+    kw = dict(device=device, lead=(num_repeats(cfg),))
+    return [M.mamba_cache_init(cfg, batch, **kw) if desc.mixer == "mamba"
+            else L.kv_cache_init(cfg, batch, max_len, **kw)
+            for desc in block_pattern(cfg)]
 
 
 # ------------------------------------------------------------------ forward
@@ -98,7 +105,13 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
                  cos=None, sin=None, attn_impl: str = "kernel"):
     """mode: 'full' (prefill / teacher-forced) or 'decode'.  Returns x."""
     h = L.apply_norm(cfg, p["norm_mixer"], x)
-    if mode == "decode":
+    if desc.mixer == "mamba":
+        if mode == "decode":
+            mix, _ = M.mamba_decode(cfg, p["mamba"], h, cache)
+        else:
+            mix, _ = M.mamba_forward(cfg, p["mamba"], h, cache,
+                                     attn_impl=attn_impl)
+    elif mode == "decode":
         mix, _ = L.attention_decode(cfg, p["attn"], h, lengths,
                                     window=desc.window, cache=cache,
                                     cos=cos, sin=sin, attn_impl=attn_impl)
@@ -108,6 +121,8 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
                                      cache=cache, cos=cos, sin=sin,
                                      attn_impl=attn_impl)
     x = x + mix
+    if desc.ffn == "none":
+        return x
     h = L.apply_norm(cfg, p["norm_ffn"], x)
     return x + L.apply_mlp(cfg, p["mlp"], h)
 
@@ -118,7 +133,9 @@ def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
     """Full-sequence pass.  x: [B, S, d].  Returns (x, caches) — the
     caches written in place, or None."""
     pat = block_pattern(cfg)
-    cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    cos = sin = None
+    if not cfg.attention_free:
+        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
             c = _layer(caches[j], r) if caches is not None else None
@@ -133,7 +150,10 @@ def stack_decode(cfg: ModelConfig, stacked_params: List[Dict], x, *,
     """One-token decode.  x: [B, 1, d].  Returns (x, caches) with the
     caches updated in place."""
     pat = block_pattern(cfg)
-    cos, sin = L.rope_cos_sin(lengths[:, None], cfg.head_dim, cfg.rope_theta)
+    cos = sin = None
+    if not cfg.attention_free:
+        cos, sin = L.rope_cos_sin(lengths[:, None], cfg.head_dim,
+                                  cfg.rope_theta)
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
             x = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,

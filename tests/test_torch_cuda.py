@@ -10,6 +10,8 @@ also runs on a machine that has only PyTorch; from the repository root:
 Tolerances follow ``tests/test_kernels.py::tol_for``: 2e-5 in fp32 (the
 same fp32 arithmetic in another summation order) and 2e-2 in bf16 (both
 sides round the fp32 result to bf16, so they may differ by a bf16 step).
+The SSD scan takes 1e-3 in fp32, as ``tests/test_kernels.py`` does for
+it: its prefix sums and chunk products are summed in another order.
 """
 import math
 
@@ -20,6 +22,7 @@ import torch
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as PA
+from repro_torch.kernels import ssd_scan as SSD
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
@@ -156,3 +159,99 @@ def test_reduced_model_kernel_path_matches_plain_path(cuda):
         8 * cfg.num_layers
     assert np.median(errs) < 0.05, errs
     assert math.isfinite(sum(errs))
+
+
+def ssd_tol(dtype_name):
+    return dict(rtol=2e-2, atol=2e-2) if dtype_name == "bfloat16" \
+        else dict(rtol=1e-3, atol=1e-3)
+
+
+def ssd_inputs(dev, seed, B, S, H, P, G, N, dtype, init):
+    """tests/test_kernels.py's SSD inputs, drawn with numpy."""
+    rng = np.random.default_rng(seed)
+    x = on(dev, rng.standard_normal((B, S, H, P)), dtype)
+    dt = on(dev, np.logaddexp(0.0, rng.standard_normal((B, S, H))),
+            torch.float32)                               # softplus
+    A = on(dev, -np.exp(rng.standard_normal(H) * 0.3), torch.float32)
+    Bm = on(dev, rng.standard_normal((B, S, G, N)) * 0.5, dtype)
+    Cm = on(dev, rng.standard_normal((B, S, G, N)) * 0.5, dtype)
+    st = on(dev, rng.standard_normal((B, H, P, N)), torch.float32) \
+        if init else None
+    return (x, dt, A, Bm, Cm), st
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk,init", [
+    (2, 64, 2, 16, 1, 16, 16, False),             # tests/test_kernels.py
+    (2, 70, 4, 16, 2, 32, 32, False),             # ragged tail, grouped B/C
+    (2, 32, 8, 64, 1, 128, 8, False),
+    (1, 40, 2, 16, 1, 16, 16, True),              # initial state
+    (2, 300, 4, 128, 2, 64, 64, True),            # P = 128
+    (1, 20, 2, 32, 1, 32, 256, False),            # chunk > S
+    (1, 891, 48, 64, 1, 128, 256, False),         # mamba2-780m prefill
+    (1, 891, 48, 64, 1, 128, 256, True),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, init, dtype):
+    args, st = ssd_inputs(cuda, S + P + N, B, S, H, P, G, N, DTYPES[dtype],
+                          init)
+    before = SSD.ssd_scan_cuda.launches
+    y, fin = ops.ssd_scan(*args, chunk=chunk, initial_state=st)
+    torch.cuda.synchronize()
+    assert SSD.ssd_scan_cuda.launches == before + 1
+    assert y.dtype == args[0].dtype and y.shape == args[0].shape
+    assert fin.dtype == torch.float32 and fin.shape == (B, H, P, N)
+    y_ref, fin_ref = SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st)
+    close(y, y_ref, **ssd_tol(dtype))
+    close(fin, fin_ref, **ssd_tol(dtype))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_refuses_what_the_kernel_does_not_take(cuda):
+    (x, dt, A, Bm, Cm), _ = ssd_inputs(cuda, 0, 1, 16, 2, 16, 1, 16,
+                                       torch.float32, False)
+    with pytest.raises(TypeError, match="bf16 or all fp32"):
+        SSD.ssd_scan_cuda(x.half(), dt, A, Bm.half(), Cm.half(), chunk=8)
+    with pytest.raises(TypeError, match="fp32"):
+        SSD.ssd_scan_cuda(x, dt.bfloat16(), A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="contiguous"):
+        SSD.ssd_scan_cuda(x.transpose(1, 2), dt, A, Bm, Cm, chunk=8)
+    with pytest.raises(ValueError, match="state_dim"):
+        SSD.ssd_scan_cuda(x, dt, A, Bm[..., :8].contiguous(),
+                          Cm[..., :8].contiguous(), chunk=8)
+    with pytest.raises(ValueError, match="chunk"):
+        SSD.ssd_scan_cuda(x.repeat(1, 32, 1, 1), dt.repeat(1, 32, 1), A,
+                          Bm.repeat(1, 32, 1, 1), Cm.repeat(1, 32, 1, 1),
+                          chunk=512)
+    with pytest.raises(ValueError, match="CPU or all on"):
+        ops.ssd_scan(x, dt.cpu(), A, Bm, Cm, chunk=8)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_kernel_path_matches_plain_path(cuda):
+    """mamba2-780m at smoke width on the card: prefill through the SSD
+    kernel plus recurrent decode, against the plain path's teacher-forced
+    forward (the JAX model's own ssd_chunked), under the 5e-3 of
+    tests/test_models_decode.py::test_mamba2_decode_exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("mamba2-780m").reduced()
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 56))).to(cuda)
+    with torch.inference_mode():
+        x, _ = plain.forward(params, {"tokens": toks})
+        ref = plain._logits(params, x)
+    cache = kernel.init_cache(2, 56, device=cuda)
+    before = ops.launch_counts()["ssd_scan"]
+    lg, cache, _ = kernel.prefill(params, {"tokens": toks[:, :48]}, cache)
+    assert ops.launch_counts()["ssd_scan"] - before == cfg.num_layers
+    worst = float((lg.softmax(-1) - ref[:, 47].softmax(-1)).abs().max())
+    for t in range(48, 56):
+        lg, cache = kernel.decode(params, toks[:, t], cache,
+                                  torch.full((2,), t, dtype=torch.int32,
+                                             device=cuda))
+        worst = max(worst, float((lg.softmax(-1) - ref[:, t].softmax(-1))
+                                 .abs().max()))
+    assert worst < 5e-3, worst

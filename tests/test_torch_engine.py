@@ -1,6 +1,8 @@
 """The port's RealEngine: every mode serves the same tokens as a sequential
 greedy run of the port's own model, and that run agrees with the JAX
-package's ``tests/test_engine.py::reference_outputs``.
+package's ``tests/test_engine.py::reference_outputs``.  Both of the port's
+models are served: olmo-1b (KV caches) and mamba2-780m (conv and SSM
+state caches, the SSD scan's plain version on the CPU), at smoke width.
 
 Engine against the port's reference: token for token (the engine runs the
 same eager torch model, so nothing may differ).  Port against JAX:
@@ -30,14 +32,27 @@ MAX_LEN = 64
 TIE_EPS = 0.02
 
 
-@pytest.fixture(scope="module")
-def setup():
-    """Reduced olmo-1b with the JAX model's parameters carried across."""
-    jm = jax_build_model(jax_get_config("olmo-1b").reduced())
+def _setup(arch):
+    """A reduced arch with the JAX model's parameters carried across."""
+    jm = jax_build_model(jax_get_config(arch).reduced())
     jparams = unbox(jm.init(jax.random.PRNGKey(0)))
-    cfg = get_config("olmo-1b").reduced()
+    cfg = get_config(arch).reduced()
     params = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
     return cfg, build_model(cfg), params, jm, jparams
+
+
+@pytest.fixture(scope="module")
+def setup():
+    return _setup("olmo-1b")
+
+
+@pytest.fixture(scope="module")
+def mamba_setup():
+    return _setup("mamba2-780m")
+
+
+# mamba2's prompts span two scan chunks of 32 (the second one ragged)
+MAMBA_PROMPT = 40
 
 
 def mk_requests(cfg, n=6, prompt=12, out=8, gap=0.01):
@@ -71,6 +86,13 @@ def reference_outputs(model, params, reqs, max_len=MAX_LEN):
 def reference(setup):
     cfg, model, params, _, _ = setup
     return reference_outputs(model, params, mk_requests(cfg))
+
+
+@pytest.fixture(scope="module")
+def mamba_reference(mamba_setup):
+    cfg, model, params, _, _ = mamba_setup
+    return reference_outputs(model, params,
+                             mk_requests(cfg, prompt=MAMBA_PROMPT))
 
 
 def run_engine(setup, reqs, **kw):
@@ -144,7 +166,7 @@ def test_pack_cache_round_trip_and_order(setup):
             assert b[k].dtype == a[k].dtype and torch.equal(a[k], b[k])
 
 
-def test_reference_agrees_with_jax(setup, reference):
+def _agrees_with_jax(setup, reference, reqs):
     """The port's greedy tokens, teacher-forced through the JAX Model:
     every port pick is the JAX argmax or a near-tie under the JAX
     probabilities, and the port's run equals JAX's free-running
@@ -157,7 +179,6 @@ def test_reference_agrees_with_jax(setup, reference):
         prefill = staticmethod(jax.jit(jm.prefill))
         decode = staticmethod(jax.jit(jm.decode))
 
-    reqs = mk_requests(cfg)
     jax_out = jax_reference_outputs(cfg, Jitted, jparams, reqs,
                                     max_len=MAX_LEN)
     for r, port_seq, jax_seq in zip(reqs, reference, jax_out):
@@ -176,3 +197,27 @@ def test_reference_agrees_with_jax(setup, reference):
                 jnp.asarray([r.prompt_len + i], jnp.int32))
         n = len(port_seq) if first_tie is None else first_tie
         assert port_seq[:n] == jax_seq[:n]
+
+
+def test_reference_agrees_with_jax(setup, reference):
+    _agrees_with_jax(setup, reference, mk_requests(setup[0]))
+
+
+@pytest.mark.parametrize("mode", ["passthrough", "static_colocate",
+                                  "dynamic_pd", "disagg"])
+def test_mamba2_engine_matches_reference(mamba_setup, mamba_reference, mode):
+    """Reduced mamba2 served in every mode: the slot cache holds each
+    sequence's conv and SSM state, and disagg moves them between devices."""
+    cfg = mamba_setup[0]
+    reqs = mk_requests(cfg, prompt=MAMBA_PROMPT)
+    eng, res = run_engine(mamba_setup, reqs, mode=mode)
+    assert res["completed"] == len(reqs) and res["failed"] == 0
+    assert [r.output_tokens for r in reqs] == mamba_reference
+    if mode != "passthrough":
+        for dev in eng.session.stats().values():
+            assert dev["buffers"] == 0 and dev["allocated_bytes"] == 0
+
+
+def test_mamba2_reference_agrees_with_jax(mamba_setup, mamba_reference):
+    _agrees_with_jax(mamba_setup, mamba_reference,
+                     mk_requests(mamba_setup[0], prompt=MAMBA_PROMPT))

@@ -370,7 +370,7 @@ def test_stack_cache_layout(cfgs):
 
 @pytest.mark.parametrize("change,item", [
     (dict(moe=MoEConfig(num_experts=4, top_k=2)), "item 7"),
-    (dict(family=Family.SSM, ssm=SSMConfig()), "item 8"),
+    (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2), "item 8"),
     (dict(attn_every=2), "item 8"),
     (dict(encoder_layers=2, family=Family.AUDIO), "item 9"),
     (dict(family=Family.VLM), "item 6"),
