@@ -12,7 +12,8 @@ fallback):
             at the main path's shapes and the sweep shapes of
             ``tests/test_kernels.py``; times the kernel, the plain version
             and one PyTorch library call where one computes the same
-            function, beside the card's bound.
+            function, beside the card's bound, and the kernel's and the
+            call's device time alone and the wrapper's host time.
 Then for each model, olmo-1b and mamba2-780m, at full published width
 (random weights from --seed):
 4. model    prefill plus 16 decode steps on the kernel path against the
@@ -47,6 +48,8 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+SPIN_CYCLES_PER_S = 2e9       # above the H100's 1.98 GHz boost clock, so a
+                              # spin of n cycles lasts at least n / 2e9 s
 TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}   # tests/test_kernels.py
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 ARCHS = ("olmo-1b", "mamba2-780m")
@@ -77,7 +80,10 @@ def card_line() -> str:
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
-    """Mean device time of one call, from CUDA events around ``iters``."""
+    """Mean time of one call, from CUDA events around ``iters``
+    back-to-back calls.  Where a call's host-side work (argument checks,
+    allocation, the launch) outlasts its kernel, the host's issue rate sets
+    this time: it is the pace a caller sees."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -89,6 +95,51 @@ def time_ms(fn, iters: int, warmup: int = 2) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_held(fn, iters: int, warmup: int = 2):
+    """(device ms, host us) of one call.  A spin kernel holds the stream
+    while the host issues ``iters`` calls, for longer than that takes, so
+    the events around them time the card alone and the host clock times
+    the issue alone."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    one_call_s = time.perf_counter() - t0     # host issue + device, a bound
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int((iters * one_call_s + 1e-3) * SPIN_CYCLES_PER_S))
+    start.record()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters, 1e6 * host_s / iters
+
+
+def kernel_times(kernel, plain, library, iters: int = 50):
+    """The kernels line's times for one kernel: ``ms``, ``plain_ms`` and
+    ``library_ms`` by ``time_ms``; beside them the kernel's and the library
+    call's device time and the kernel wrapper's host time per call, by
+    ``time_held``."""
+    t = dict(ms=time_ms(kernel, iters),
+             plain_ms=time_ms(plain, 3, warmup=1),
+             library_ms=None if library is None else time_ms(library, iters))
+    t["device_ms"], t["host_us"] = time_held(kernel, iters)
+    t["library_device_ms"] = (None if library is None
+                              else time_held(library, iters)[0])
+    return t
+
+
+def times_text(t) -> str:
+    return " ".join(f"{k}={t[k]!r}" for k in (
+        "ms", "device_ms", "host_us", "plain_ms", "library_ms",
+        "library_device_ms", "bound_ms")) + f" ({t['bound_by']})"
 
 
 def bound(flops: float, nbytes: float):
@@ -133,14 +184,18 @@ def flash_cases(prompt_lens):
         for dt in (torch.float32, torch.bfloat16):
             cases.append((f"sweep S={S} H={H}/{KVH} D={D}", 2, S, S, H, KVH,
                           D, dt, dict(causal=True, scale=D ** -0.5)))
-    for window, softcap, causal in [(16, 0.0, True), (0, 25.0, True),
-                                    (16, 25.0, True), (0, 0.0, False)]:
-        cases.append((f"variant w={window} cap={softcap} causal={causal}", 1,
-                      80, 80, 4, 2, 32, torch.float32,
-                      dict(causal=causal, scale=0.2, window=window,
-                           softcap=softcap)))
-    cases.append(("kv_len=70 of T=100", 1, 48, 100, 4, 2, 64, torch.float32,
-                  dict(causal=False, scale=0.2, kv_len=70)))
+    for dt in (torch.float32, torch.bfloat16):
+        for window, softcap, causal in [(16, 0.0, True), (0, 25.0, True),
+                                        (16, 25.0, True), (0, 0.0, False)]:
+            cases.append((f"variant w={window} cap={softcap} "
+                          f"causal={causal}", 1, 80, 80, 4, 2, 32, dt,
+                          dict(causal=causal, scale=0.2, window=window,
+                               softcap=softcap)))
+        cases.append(("kv_len=70 of T=100", 1, 48, 100, 4, 2, 64, dt,
+                      dict(causal=False, scale=0.2, kv_len=70)))
+        for S in (1, 63, 64, 65, 129):              # the 64-row tile edges
+            cases.append((f"edge S={S}", 1, S, S, 4, 2, 128, dt,
+                          dict(causal=True, scale=128 ** -0.5)))
     return cases
 
 
@@ -159,27 +214,36 @@ def check_flash(prompt_lens, gen):
             main_err = max(main_err, err)
         print(f"  flash_attention {label} {str(dt)[6:]}: max_abs_err={err:.3g}")
 
-    # timing at the longest prompt of the engine's traffic
-    S = max(prompt_lens)
+    # timing at the shortest prompt of the engine's traffic (its own line),
+    # then at the longest (the kernels line)
+    for S in (min(prompt_lens), max(prompt_lens)):
+        t = time_flash(FA, S, gen)
+        print(f"  flash_attention at q/k/v [1,{S},16,128] bf16 causal: "
+              f"{times_text(t)}")
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces="src/repro/kernels/flash_attention.py:82",
+                max_abs_err=main_err, **t,
+                shape=f"q/k/v [1,{S},16,128] bf16 causal")
+
+
+def time_flash(FA, S: int, gen):
+    """Kernel, plain and SDPA times at q/k/v [1, S, 16, 128] bf16 causal,
+    beside the card's bound for the causal work."""
     q, k, v = (torch.randn(1, S, 16, 128, generator=gen, device="cuda")
                .to(torch.bfloat16) for _ in range(3))
     scale = 128 ** -0.5
-    ms = time_ms(lambda: FA.flash_attention_cuda(q, k, v, scale=scale), 50)
-    plain_ms = time_ms(lambda: FA.flash_attention_plain(q, k, v, scale=scale),
-                       3, warmup=1)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True, scale=scale), 50)
+    t = kernel_times(
+        lambda: FA.flash_attention_cuda(q, k, v, scale=scale),
+        lambda: FA.flash_attention_plain(q, k, v, scale=scale),
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                               scale=scale))
     pairs = S * (S + 1) // 2                        # causal (q, k) pairs
     flops = 4.0 * 16 * 128 * pairs
     nbytes = 4 * q.numel() * q.element_size()       # q, k, v read; out written
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(name="flash_attention", route="cuda",
-                source="src/repro_torch/kernels/csrc/flash_attention.cu",
-                replaces="src/repro/kernels/flash_attention.py:82",
-                max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
-                shape=f"q/k/v [1,{S},16,128] bf16 causal")
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by)
 
 
 def paged_inputs(B, H, KVH, D, ps, maxp, dt, gen, *, identity, lengths):
@@ -212,35 +276,54 @@ def check_paged(max_len, prompt_lens, gen):
                           D ** -0.5, 0.0))
     cases.append(("softcap", 2, 4, 2, 32, 8, 3, torch.float32, True, [20, 9],
                   0.2, 30.0))
+    maxp = max_len // ps
+    for dt in (torch.float32, torch.bfloat16):
+        cases += [
+            ("length 1", MAX_NUM_SEQS, 16, 16, 128, ps, maxp, dt, True,
+             [1] * MAX_NUM_SEQS, 128 ** -0.5, 0.0),
+            ("full capacity", MAX_NUM_SEQS, 16, 16, 128, ps, maxp, dt, True,
+             [max_len] * MAX_NUM_SEQS, 128 ** -0.5, 0.0),
+            # 30 splits of 32 tokens over 2 chunks: 28 splits empty
+            ("more splits than chunks", 1, 2, 1, 64, 16, 60, dt, False,
+             [40], 0.125, 0.0),
+            ("G=12 in chunks of 8", 2, 24, 2, 64, 16, 4, dt, False, [50, 7],
+             0.125, 30.0),
+            # B * KVH = 264 >= 2 * 132 SMs: one split, no partials
+            ("one split", 33, 16, 8, 128, 16, 4, dt, False,
+             [1 + (i * 13) % 64 for i in range(33)], 128 ** -0.5, 0.0),
+        ]
     main_err = 0.0
+    sms = PA.sm_count(torch.device("cuda"))
     for (label, B, H, KVH, D, pps, maxp, dt, ident, lens, scale,
          cap) in cases:
         args = paged_inputs(B, H, KVH, D, pps, maxp, dt, gen,
                             identity=ident, lengths=lens)
-        got = PA.paged_attention_cuda(*args, scale=scale, softcap=cap)
-        torch.cuda.synchronize()
-        err = check_close(f"paged_attention {label}", got,
-                          PA.paged_attention_plain(*args, scale=scale,
-                                                   softcap=cap), dt)
+        want = PA.paged_attention_plain(*args, scale=scale, softcap=cap)
+        n_split, span = PA.split_plan(B, KVH, maxp * pps, sms)
+        # twice: the second launch finds the first one's tickets reset
+        for _ in range(2):
+            got = PA.paged_attention_cuda(*args, scale=scale, softcap=cap)
+            torch.cuda.synchronize()
+            err = check_close(f"paged_attention {label}", got, want, dt)
         if label.startswith("main"):
             main_err = err
             main_args = args
-        print(f"  paged_attention {label} {str(dt)[6:]}: max_abs_err={err:.3g}")
+        print(f"  paged_attention {label} {str(dt)[6:]} ({n_split} splits "
+              f"of {span}): max_abs_err={err:.3g}")
 
     q, kp, vp, pt, ln = main_args
     scale = 128 ** -0.5
-    ms = time_ms(lambda: PA.paged_attention_cuda(q, kp, vp, pt, ln,
-                                                 scale=scale), 50)
-    plain_ms = time_ms(lambda: PA.paged_attention_plain(
-        q, kp, vp, pt, ln, scale=scale), 3, warmup=1)
     # identity page table: the pages are the dense [B, T, KVH, D] cache
     B, T = MAX_NUM_SEQS, max_len
     kd = kp.view(B, T, 16, 128).transpose(1, 2)
     vd = vp.view(B, T, 16, 128).transpose(1, 2)
     mask = (torch.arange(T, device="cuda")[None] < ln[:, None].long())
     mask = mask[:, None, None, :]
-    library_ms = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], kd, vd, attn_mask=mask, scale=scale), 50)
+    t = kernel_times(
+        lambda: PA.paged_attention_cuda(q, kp, vp, pt, ln, scale=scale),
+        lambda: PA.paged_attention_plain(q, kp, vp, pt, ln, scale=scale),
+        lambda: F.scaled_dot_product_attention(
+            q[:, :, None], kd, vd, attn_mask=mask, scale=scale))
     n_tok = sum(min(int(n), T) for n in main_lens)
     elt = q.element_size()
     flops = 4.0 * 16 * 128 * n_tok
@@ -252,10 +335,11 @@ def check_paged(max_len, prompt_lens, gen):
     return dict(name="paged_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/paged_attention.cu",
                 replaces="src/repro/kernels/paged_attention.py:77",
-                max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms,
+                max_abs_err=main_err, **t, bound_ms=bound_ms,
+                bound_by=bound_by,
                 shape=f"q [{B},16,128], slot cache [{B},{T},16,128] bf16, "
-                      f"ps={ps}, lengths {main_lens}")
+                      f"ps={ps}, lengths {main_lens}, "
+                      f"{PA.split_plan(B, 16, T, sms)[0]} splits")
 
 
 def ssd_inputs(B, S, H, P, G, N, dt_type, gen, *, init):
@@ -301,11 +385,10 @@ def check_ssd(prompt_lens, gen):
     # engine's prefill passes (the zeroed slot state)
     B, S, H, P, G, N, chunk = main
     args, st = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, gen, init=True)
-    ms = time_ms(lambda: SSD.ssd_scan_cuda(*args, chunk=chunk,
-                                           initial_state=st), 50)
-    plain_ms = time_ms(lambda: SSD.ssd_scan_plain(*args, chunk=chunk,
-                                                  initial_state=st),
-                       3, warmup=1)
+    t = kernel_times(
+        lambda: SSD.ssd_scan_cuda(*args, chunk=chunk, initial_state=st),
+        lambda: SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st),
+        None)
     rows = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
     flops = B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in rows)
     x, dt, A, Bm, Cm = args
@@ -317,8 +400,8 @@ def check_ssd(prompt_lens, gen):
     return dict(name="ssd_scan", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan.cu",
                 replaces="src/repro/kernels/ssd_scan.py:81",
-                max_abs_err=main_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+                max_abs_err=main_err, **t, bound_ms=bound_ms,
+                bound_by=bound_by,
                 shape=f"x [1,{S},48,64] bf16, B/C [1,{S},1,128] bf16, "
                       f"state [1,48,64,128] fp32, chunk {chunk}")
 
@@ -423,9 +506,12 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
         torch.cuda.synchronize()
 
     run()                                           # warm up
-    t0 = time.monotonic()
-    run()
-    step_ms = 1e3 * (time.monotonic() - t0) / steps
+    host_ms = []          # the host clock spreads: take it several times
+    for _ in range(5):
+        t0 = time.monotonic()
+        run()
+        host_ms.append(1e3 * (time.monotonic() - t0) / steps)
+    step_ms = float(np.median(host_ms))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
@@ -434,8 +520,9 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
     n_launch = sum(e.count for e in kernels) / steps
     print(f"  decode step at the engine's shape (batch {B}, cache {max_len}):"
-          f" host clock {step_ms!r} ms; profiler: device busy {busy_ms!r} ms"
-          f" ({n_launch:.0f} kernel launches)")
+          f" host clock {step_ms!r} ms (median of 5 runs of {steps} steps: "
+          f"{', '.join(f'{t:.3f}' for t in sorted(host_ms))}); profiler: "
+          f"device busy {busy_ms!r} ms ({n_launch:.0f} kernel launches)")
     if busy_ms == 0:
         print("  device busy share: not measured (the profiler saw no CUDA "
               "kernel)")
@@ -570,9 +657,7 @@ def main() -> int:
                check_paged(max_len, prompt_lens, gen),
                check_ssd(prompt_lens, gen)]
     for k in kernels:
-        print(f"  {k['name']} at {k['shape']}: ms={k['ms']!r} "
-              f"plain_ms={k['plain_ms']!r} library_ms={k['library_ms']!r} "
-              f"bound_ms={k['bound_ms']!r} ({k['bound_by']})")
+        print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
     launches = dict.fromkeys((k["name"] for k in kernels), 0)
     for cfg in cfgs:

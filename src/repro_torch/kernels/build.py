@@ -32,10 +32,10 @@ SIGNATURES = {
     # scale, stream
     "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                         _F, _F, _P],
-    # q, k_pages, v_pages, page_tables, lengths, out, B, H, KVH, D, ps,
-    # maxp, scale, softcap, stream
-    "paged_attention": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
-                        _F, _P],
+    # q, k_pages, v_pages, page_tables, lengths, out, scratch, tickets, B,
+    # H, KVH, D, ps, maxp, n_split, span, scale, softcap, stream
+    "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                        _I, _I, _I, _F, _F, _P],
     # x, dt, A, Bm, Cm, initial_state (or NULL), y, final_state, B, S, H,
     # G, P, N, chunk, stream
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -9,60 +9,581 @@
 // Layouts: q/out [B, S, H, D], k/v [B, T, KVH, D], all contiguous; bf16 or
 // fp32 in, fp32 scores / m / l / acc, output in q's type.
 //
-// What bounds it on this card: for a long prompt the FLOPs (4 * S^2/2 * H * D
-// for causal attention against ~2 * S * H * D * 2 bytes of q/k/v/out), i.e.
-// it sits far above the H100's ~295 FLOP/byte ridge.  This first version is
-// the simple, correct shape of that computation, on CUDA cores in fp32:
-//   * one block per (q tile of BQ rows, head, batch); a loop inside the block
-//     over KV tiles takes the place of the TPU grid's sequential kv axis;
-//   * the Q tile and each K/V tile are staged in shared memory (as fp32, rows
-//     padded by one float so column reads are bank-conflict free); scores,
-//     m, l and acc stay fp32 in registers;
-//   * KV tiles outside the causal/window band are skipped whole (the TPU
-//     kernel's pl.when), so causal prefill does half the work;
-//   * the ragged tails of S and T are masked in-kernel, where the TPU wrapper
-//     padded with jnp.pad.
-// The tensor-core path (mma.sync / wgmma, TMA, warp specialisation) is later
-// work; the plain version beside the wrapper (kernels/flash_attention.py)
-// repeats this tiling so the arithmetic is testable without a card.
+// What bounds it on this card: for a long prompt the operations (4 * S^2/2 *
+// H * D for causal attention against ~2 * S * H * D * 2 bytes of
+// q/k/v/out), far above the H100's ~295 FLOP/byte ridge, so the tensor
+// cores set the pace.  bf16 inputs take flash_attention_wgmma, the
+// FlashAttention-2 shape on Hopper's warpgroup products:
+//   * one block of one warpgroup (4 warps) per (64-row q tile, head, batch),
+//     each warp owning 16 query rows.  Two blocks fit on an SM (83 KB of
+//     shared memory at D = 128), so one block's softmax runs while the
+//     other's products do.  The q tiles launch in reverse order, so the
+//     causal tiles with the most KV tiles start first;
+//   * Q is copied once into shared memory with cp.async; each KV tile
+//     reads it into registers again as the S product's A operand
+//     (ldmatrix.x4: the mma.sync A-fragment layout, which wgmma takes from
+//     registers), so no A fragment lives across tiles (see below).  K and
+//     V tiles of 64 rows go through a two-stage ring by cp.async.cg,
+//     zero-filled past T, in the swizzled layout that wgmma's
+//     shared-memory descriptors read (128-byte swizzle at D = 128, 64-byte
+//     below), so tile j+1 loads while tile j is computed;
+//   * S = Q K^T is wgmma m64n64k16 (K read K-major) and O += P V is wgmma
+//     m64nDk16 (V read N-major), bf16 in, fp32 accumulators in registers.  P
+//     never touches shared memory: the fp32 S accumulator packs pairwise into
+//     the A operand of the P V product (P rounds to bf16 there, where the
+//     plain version keeps it in fp32).  V's descriptor is the N-major
+//     canonical layout: the leading byte offset steps between SW-byte
+//     column blocks along N, the stride byte offset between 8-key groups;
+//   * the online softmax runs in fp32 registers in log2 units (ex2, with
+//     scale * log2(e) folded into the scores; under a softcap, tanh of the
+//     scaled score over the cap, times cap * log2(e)); a row's max is reduced
+//     over the 4 lanes that hold it, and its sum only once, at the end;
+//   * the mask (causal, window, kv_len, ragged S and T) runs only on the KV
+//     tiles that cross an edge of the band; tiles outside it are skipped
+//     whole, like the TPU kernel's pl.when.  Masked scores take NEG_INF
+//     before the row max, exactly as the plain version does.
+// Why Q's fragments are read at every tile: loaded once and carried from
+// tile to tile in registers, at D = 64 they were given the same registers
+// as P's fragments (R88-R103 in ptxas's SASS), so from the second KV tile
+// on S was computed from the previous tile's P (errors of 0.2-0.7 against
+// the plain version).  The descriptors were not at fault:
+// scripts/wgmma_probe.cu runs this P V product alone, with the kernel's
+// descriptors and swizzle, and it is exact.  Now only O, the products'
+// accumulator, lives across tiles in their registers.
+// fp32 inputs take flash_attention_simt, on CUDA cores in fp32: the
+// tensor cores would compute in TF32, which keeps about 3 digits,
+// and the fp32 path is held to 2e-5.  The model runs in bf16, so the main
+// path never reaches it.  Both kernels use the plain version's 64 x 64
+// tiles (kernels/flash_attention.py), so all three visit the same tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int BQ = 64;            // query rows per block
-constexpr int BK = 32;            // keys per KV tile
-constexpr int TY = 16;            // thread grid: TY x TX = 256 threads
-constexpr int TX = 16;
-constexpr int THREADS = TY * TX;
-constexpr int RQ = BQ / TY;       // query rows per thread
-constexpr int CK = BK / TX;       // score columns per thread
-constexpr int PS = BK + 4;        // P row stride: the two row groups of a
-                                  // warp land 16 banks apart
+constexpr int BK = 64;            // keys per KV tile
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+// ------------------------------------------------ the tiles a q tile visits
+
+// The KV tiles that touch the visible band of the q tile at q_start form
+// one run [lo, hi] (hi < lo: none).  Each condition of the band is monotone
+// in the tile index: k_start < kv_len and (causal) k_start <= q_end bound
+// it above, (window) k_end > q_start - window below.
+__device__ __forceinline__ void band(int q_start, int kv_len, int causal,
+                                     int window, int* lo, int* hi) {
+  *hi = kv_len > 0 ? (kv_len - 1) / BK : -1;
+  if (causal) *hi = min(*hi, (q_start + BQ - 1) / BK);
+  *lo = 0;
+  if (window > 0) {
+    const int x = q_start - window - BK + 1;   // need k_start > x
+    *lo = x < 0 ? 0 : x / BK + 1;
+  }
 }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16(x);
+
+// Does every (row, key) of the tile lie inside the band, so that the tile
+// needs no mask?  (Rows past S are never stored, so they do not count.)
+__device__ __forceinline__ bool tile_full(int q_start, int k_start,
+                                          int kv_len, int causal,
+                                          int window) {
+  const int k_end = k_start + BK - 1;
+  bool full = k_end < kv_len;
+  if (causal) full = full && k_end <= q_start;
+  if (window > 0) full = full && k_start > q_start + BQ - 1 - window;
+  return full;
+}
+
+// -------------------------------------------------- bf16: shared helpers
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, bypassing L1; src_bytes = 0
+// writes 16 zero bytes (src must still be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  const int src_bytes = pred ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// 2^x on the special-function unit; 2^(-1e30) is 0, as expf gives.
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared-memory row stride, in elements: 16 bytes of padding put the 8 rows
+// an ldmatrix reads in 8 distinct 16-byte bank groups.
+template <int D>
+__host__ __device__ constexpr int q_row() { return D + 8; }
+
+constexpr int WG_THREADS = 32 * BQ / 16;   // a warpgroup: 16 rows a warp
+constexpr int STAGES = 2;                   // K/V tiles in the ring
+
+// Copy ROWS rows of D bf16 (global row stride `stride` elements, row r at
+// src + r * stride) into a [ROWS][D + 8] shared tile; rows at or past
+// `valid` are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
+                                          const __nv_bfloat16* src,
+                                          long stride, int valid, int tid) {
+  constexpr int CH = D / 8;       // 16-byte chunks a row
+  constexpr int RS = q_row<D>();
+#pragma unroll
+  for (int e = tid; e < ROWS * CH; e += WG_THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + r * RS + c * 8),
+               ok ? src + r * stride + c * 8 : src, ok);
+  }
+}
+
+// The online-softmax step of one 16-row x 64-key score tile held as mma
+// accumulator fragments (s[n][e]: row g + 8 * (e / 2), key n * 8 + c2 +
+// e % 2): scale (and softcap) into log2 units, mask if the tile crosses the
+// band's edge, take the row max over the 4 lanes of a row, turn s into P
+// and rescale the running m, l and O.  Masked scores take NEG_INF before
+// the max, as in the plain version.
+template <int D, bool SOFTCAP>
+__device__ __forceinline__ void online_softmax(
+    float (&s)[BK / 8][4], float (&o)[D / 8][4], float (&m)[2], float (&l)[2],
+    int qrow, int k_start, int c2, int kv_len, int causal, int window,
+    float qk_scale, float cap_log2, bool masked) {
+  constexpr int NS = BK / 8;
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[n][e] * qk_scale;
+      if (SOFTCAP) x = tanhf(x) * cap_log2;
+      s[n][e] = x;
+    }
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = qrow + 8 * (e / 2);
+        const int kpos = k_start + n * 8 + c2 + (e % 2);
+        bool valid = kpos < kv_len;
+        if (causal) valid = valid && kpos <= qpos;
+        if (window > 0) valid = valid && kpos > qpos - window;
+        if (!valid) s[n][e] = NEG_INF;
+      }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = NEG_INF;
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+      mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    alpha[r] = ex2(m[r] - m_new);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NS; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(s[n][e] - m[e / 2]);
+      s[n][e] = p;
+      l[e / 2] += p;
+    }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] *= alpha[e / 2];
+}
+
+// P's A fragment for keys kk*16 + [0, 16): the accumulators of n-tiles 2kk
+// and 2kk+1, packed pairwise to bf16.
+__device__ __forceinline__ void p_fragment(const float (&s)[BK / 8][4],
+                                           int kk, uint32_t (&pf)[4]) {
+  pf[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+  pf[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+  pf[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+  pf[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+}
+
+// The block's output rows: the warp's 16 rows of O / l through its own rows
+// of Qs, then 16-byte stores of the rows before S.
+template <int D>
+__device__ __forceinline__ void store_rows(
+    float (&o)[D / 8][4], float (&l)[2], __nv_bfloat16* Ow,
+    __nv_bfloat16* __restrict__ out_rows, long stride, int valid, int lane) {
+  constexpr int RS = q_row<D>();
+  const int g = lane / 4, c = lane % 4;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    l[r] = 1.f / fmaxf(l[r], 1e-30f);
+  }
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    __nv_bfloat16* row = Ow + g * RS + n * 8 + 2 * c;
+    *reinterpret_cast<uint32_t*>(row) =
+        pack_bf16(o[n][0] * l[0], o[n][1] * l[0]);
+    *reinterpret_cast<uint32_t*>(row + 8 * RS) =
+        pack_bf16(o[n][2] * l[1], o[n][3] * l[1]);
+  }
+  __syncwarp();
+  constexpr int CH = D / 8;
+  for (int e = lane; e < 16 * CH; e += 32) {
+    const int r = e / CH, ch = e % CH;
+    if (r < valid)
+      *reinterpret_cast<uint4*>(out_rows + r * stride + ch * 8) =
+          *reinterpret_cast<const uint4*>(Ow + r * RS + ch * 8);
+  }
+}
+
+// ---------------------------------------------- bf16: warpgroup products
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// cp.async writes shared memory through the generic proxy, wgmma reads it
+// through the async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+// Pin wgmma accumulators in their registers on both sides of the products:
+// between the issue and the wait the tensor cores write them behind the
+// compiler's back, so it must neither read nor move them there.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+}
+
+// The same for the A fragments a running wgmma reads from registers.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
+}
+
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets (16-byte units), swizzle mode (1: 128 B, 2: 64 B).
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo, uint32_t mode) {
+  return uint64_t((addr & 0x3FFFF) >> 4) | (uint64_t(lbo >> 4) << 16) |
+         (uint64_t(sbo >> 4) << 32) | (uint64_t(mode) << 62);
+}
+
+// d (64 x N fp32, the warpgroup's accumulator) = a (64 x 16 bf16, from
+// registers: each warp its 16 rows, as an mma.sync A fragment) * b (16 x N
+// bf16, from shared memory; TRANS_B = 1: N-major), plus d if scale_d.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[4][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %22, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %21;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "n"(TRANS_B), "r"(scale_d));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %38, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, %37;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "n"(TRANS_B), "r"(scale_d));
+}
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %70, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, %69;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "n"(TRANS_B), "r"(scale_d));
+}
+
+// K and V tiles for wgmma: [BK][D] bf16 in column blocks of SW bytes a row
+// (SW = 128 at D = 128, 64 below), each block [BK][SW] with its 16-byte
+// chunks swizzled by the row (chunk ^= row % 8 at SW = 128, (row / 2) % 4 at
+// SW = 64): the layout the descriptors' swizzle modes name.  Blocks are
+// 1024-byte aligned.
+template <int D>
+struct SwTile {
+  static constexpr int SW = D == 128 ? 128 : 64;   // bytes a row
+  static constexpr int BLOCK = BK * SW;              // bytes a block
+  static constexpr int BYTES = BK * D * 2;
+  static constexpr uint32_t MODE = SW == 128 ? 1 : 2;
+  // byte offset of 16-byte chunk `chunk` of row r
+  __device__ static int offset(int r, int chunk) {
+    constexpr int PER_ROW = SW / 16;
+    const int off =
+        (chunk / PER_ROW) * BLOCK + r * SW + (chunk % PER_ROW) * 16;
+    return off ^ (((off >> 7) & (PER_ROW - 1)) << 4);
+  }
+};
+
+template <int D>
+__device__ __forceinline__ void load_sw_tile(unsigned char* dst,
+                                             const __nv_bfloat16* src,
+                                             long stride, int valid,
+                                             int tid) {
+  constexpr int CH = D / 8;
+#pragma unroll
+  for (int e = tid; e < BK * CH; e += WG_THREADS) {
+    const int r = e / CH, c = e % CH;
+    const bool ok = r < valid;
+    cp_async16(smem_addr(dst + SwTile<D>::offset(r, c)),
+               ok ? src + r * stride + c * 8 : src, ok);
+  }
 }
 
 template <int D>
-constexpr size_t smem_bytes() {
+constexpr size_t wgmma_smem_bytes() {
+  return sizeof(__nv_bfloat16) * size_t(BQ) * q_row<D>() +
+         size_t(STAGES) * 2 * SwTile<D>::BYTES;
+}
+
+// One warpgroup per (64-row q tile, head, batch): Q's A fragments come from
+// shared memory at every KV tile; K (S = Q K^T, K-major) and V (O += P V,
+// N-major) are read by
+// the tensor cores straight from the swizzled ring.  Around each product the
+// accumulators and A fragments are pinned (fence_regs), and the products
+// are waited for before their results are read.
+template <int D, bool SOFTCAP>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_attention_wgmma(const __nv_bfloat16* __restrict__ q,
+                      const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v,
+                      __nv_bfloat16* __restrict__ out, int S, int T_len,
+                      int H, int KVH, int kv_len, int causal, int window,
+                      float softcap, float scale) {
+  using Tile = SwTile<D>;
+  constexpr int RS = q_row<D>();
+  constexpr int KB = D / 16;
+  constexpr int NS = BK / 8;
+  constexpr int NO = D / 8;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  unsigned char* KV = smem_raw + sizeof(__nv_bfloat16) * BQ * RS;
+  // stage st: K at KV + (2 st) * BYTES, V at KV + (2 st + 1) * BYTES
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, c = lane % 4;
+  const int q_start = (gridDim.x - 1 - blockIdx.x) * BQ;
+  const int row0 = warp * 16;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int kvh = h / (H / KVH);
+  const long q_stride = long(H) * D, kv_stride = long(KVH) * D;
+  const __nv_bfloat16* qb = q + (long(b) * S * H + h) * D;
+  const __nv_bfloat16* kb = k + (long(b) * T_len * KVH + kvh) * D;
+  const __nv_bfloat16* vb = v + (long(b) * T_len * KVH + kvh) * D;
+  const int a_off = ((lane % 8) + 8 * ((lane / 8) % 2)) * RS + 8 * (lane / 16);
+
+  int lo, hi;
+  band(q_start, kv_len, causal, window, &lo, &hi);
+  auto issue = [&](int j) {
+    if (j <= hi) {
+      const int k0 = j * BK, st = (j - lo) % STAGES;
+      load_sw_tile<D>(KV + (2 * st) * Tile::BYTES, kb + k0 * kv_stride,
+                      kv_stride, T_len - k0, tid);
+      load_sw_tile<D>(KV + (2 * st + 1) * Tile::BYTES, vb + k0 * kv_stride,
+                      kv_stride, T_len - k0, tid);
+    }
+    cp_async_commit();
+  };
+  load_tile<D, BQ>(Qs, qb + q_start * q_stride, q_stride, S - q_start, tid);
+  issue(lo);                         // group: Q and tile lo
+
+  const float qk_scale = SOFTCAP ? scale / softcap : scale * LOG2E;
+  const float cap_log2 = softcap * LOG2E;
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = 0.f;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.f, 0.f};
+  // V, N-major: the next column block (N) is BLOCK bytes on, the next 8
+  // keys (K) 8 rows on
+  constexpr uint32_t V_LBO = Tile::BLOCK, V_SBO = 8 * Tile::SW;
+
+  for (int j = lo; j <= hi; ++j) {
+    // tile j has landed; after the barrier tile j-1's stage is free for
+    // tile j+1
+    cp_async_wait<0>();
+    fence_proxy_async();
+    __syncthreads();
+    issue(j + 1);
+    const int stage = (j - lo) % STAGES;
+    const uint32_t Kc = smem_addr(KV + (2 * stage) * Tile::BYTES);
+    const uint32_t Vc = smem_addr(KV + (2 * stage + 1) * Tile::BYTES);
+
+    // Q's fragments, read again at every tile: held across tiles, they
+    // shared registers with P's fragments at D = 64 (see the header)
+    uint32_t qf[KB][4];
+    const uint32_t Qa = smem_addr(Qs + row0 * RS + a_off);
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) ldmatrix_x4(qf[kk], Qa + 2 * kk * 16);
+
+    // S = Q K_j^T: 64 rows x 64 keys
+    float s[NS][4];
+    fence_regs(qf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB; ++kk) {
+      // d-columns kk*16 + [0, 16): block (kk*32) / SW, 32 bytes a step
+      const uint32_t off = (kk * 32 / Tile::SW) * Tile::BLOCK +
+                           (kk * 32) % Tile::SW;
+      wgmma_rs<0>(s, qf[kk], smem_desc(Kc + off, 16, 8 * Tile::SW,
+                                       Tile::MODE), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+    fence_regs(qf);
+
+    online_softmax<D, SOFTCAP>(s, o, m, l, q_start + row0 + g, j * BK, 2 * c,
+                               kv_len, causal, window, qk_scale, cap_log2,
+                               !tile_full(q_start, j * BK, kv_len, causal,
+                                          window));
+
+    // P's fragments, all packed before the products: wgmma reads its A
+    // registers while it runs, so they stay untouched until the wait
+    uint32_t pf[BK / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) p_fragment(s, kk, pf[kk]);
+    fence_regs(o);
+    fence_regs(pf);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) {
+      const uint32_t vk = Vc + kk * 16 * Tile::SW;
+      wgmma_rs<1>(o, pf[kk], smem_desc(vk, V_LBO, V_SBO, Tile::MODE), 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+    fence_regs(pf);
+  }
+  cp_async_wait<0>();                // no copy in flight (lo > hi: Q only)
+  __syncthreads();
+  store_rows<D>(o, l, Qs + row0 * RS,
+                out + (long(b) * S + q_start + row0) * q_stride + long(h) * D,
+                q_stride, S - q_start - row0, lane);
+}
+
+// ------------------------------------------------------ fp32: CUDA cores
+
+constexpr int TY = 16;            // thread grid: TY x TX = 256 threads
+constexpr int TX = 16;
+constexpr int SIMT_THREADS = TY * TX;
+constexpr int RQ = BQ / TY;       // query rows per thread
+constexpr int CK = BK / TX;       // score columns per thread
+constexpr int PS = BK + 4;        // P row stride: the two row groups of a
+                                  // warp (RQ = 4 rows apart) land 16 banks
+                                  // apart
+
+template <int D>
+constexpr size_t simt_smem_bytes() {
   return sizeof(float) *
          (size_t(BQ) * (D + 1) + size_t(BK) * (D + 1) + size_t(BK) * D +
           size_t(BQ) * PS);
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
-                       int T_len, int H, int KVH, int kv_len, int causal,
-                       int window, float softcap, float scale) {
+// Q, K and V tiles in shared memory as fp32 (rows
+// padded by one float so column reads are bank-conflict free), scores, m,
+// l and acc in fp32 registers, natural-unit expf.
+template <int D>
+__global__ void __launch_bounds__(SIMT_THREADS)
+flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ out,
+                     int S, int T_len, int H, int KVH, int kv_len,
+                     int causal, int window, float softcap, float scale) {
   constexpr int DP = D + 1;
   constexpr int AD = D / TX;      // acc columns per thread
   extern __shared__ float smem[];
@@ -78,13 +599,13 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kvh = h / (H / KVH);
   const long q_row = long(H) * D;     // stride between consecutive positions
   const long kv_row = long(KVH) * D;
-  const T* qb = q + (long(b) * S * H + h) * D;
-  const T* kb = k + (long(b) * T_len * KVH + kvh) * D;
-  const T* vb = v + (long(b) * T_len * KVH + kvh) * D;
+  const float* qb = q + (long(b) * S * H + h) * D;
+  const float* kb = k + (long(b) * T_len * KVH + kvh) * D;
+  const float* vb = v + (long(b) * T_len * KVH + kvh) * D;
 
-  for (int e = tid; e < BQ * D; e += THREADS) {
+  for (int e = tid; e < BQ * D; e += SIMT_THREADS) {
     const int r = e / D, d = e % D, s = q_start + r;
-    Qs[r * DP + d] = s < S ? to_f32(qb[s * q_row + d]) : 0.f;
+    Qs[r * DP + d] = s < S ? qb[s * q_row + d] : 0.f;
   }
 
   float m[RQ], l[RQ], acc[RQ][AD];
@@ -96,23 +617,17 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int a = 0; a < AD; ++a) acc[i][a] = 0.f;
   }
 
-  const int n_tiles = (T_len + BK - 1) / BK;
-  for (int it = 0; it < n_tiles; ++it) {
+  int lo, hi;
+  band(q_start, kv_len, causal, window, &lo, &hi);
+  for (int it = lo; it <= hi; ++it) {
     const int k_start = it * BK;
-    // band check, uniform over the block (so every thread meets the same
-    // __syncthreads): does this KV tile touch the visible region?
-    bool needed = k_start < kv_len;
-    if (causal) needed = needed && k_start <= q_start + BQ - 1;
-    if (window > 0) needed = needed && k_start + BK - 1 > q_start - window;
-    if (!needed) continue;
-
     __syncthreads();              // the previous tile's readers are done
-    for (int e = tid; e < BK * D; e += THREADS) {
+    for (int e = tid; e < BK * D; e += SIMT_THREADS) {
       const int c = e / D, d = e % D, t = k_start + c;
       float kx = 0.f, vx = 0.f;
       if (t < T_len) {
-        kx = to_f32(kb[t * kv_row + d]);
-        vx = to_f32(vb[t * kv_row + d]);
+        kx = kb[t * kv_row + d];
+        vx = vb[t * kv_row + d];
       }
       Ks[c * DP + d] = kx;
       Vs[c * D + d] = vx;
@@ -195,10 +710,32 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int s = q_start + ty * RQ + i;
     if (s >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
-    T* o = out + ((long(b) * S + s) * H + h) * D;
+    float* o = out + ((long(b) * S + s) * H + h) * D;
 #pragma unroll
-    for (int a = 0; a < AD; ++a) store(o + tx + a * TX, acc[i][a] / denom);
+    for (int a = 0; a < AD; ++a) o[tx + a * TX] = acc[i][a] / denom;
   }
+}
+
+// ------------------------------------------------------------ launching
+
+template <int D, bool SOFTCAP>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
+                         void* out, int B, int S, int T_len, int H, int KVH,
+                         int kv_len, int causal, int window, float softcap,
+                         float scale, cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes<D>();
+  auto kernel = flash_attention_wgmma<D, SOFTCAP>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+  if (err != cudaSuccess) return err;
+  const dim3 grid((S + BQ - 1) / BQ, H, B);
+  kernel<<<grid, WG_THREADS, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v),
+      static_cast<__nv_bfloat16*>(out), S, T_len, H, KVH, kv_len, causal,
+      window, softcap, scale);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
@@ -206,17 +743,27 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int T_len, int H, int KVH, int kv_len,
                    int causal, int window, float softcap, float scale,
                    cudaStream_t stream) {
-  const size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
-  if (err != cudaSuccess) return err;
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
-      kv_len, causal, window, softcap, scale);
-  return cudaGetLastError();
+  if constexpr (sizeof(T) == 2) {
+    return softcap > 0.f
+               ? launch_wgmma<D, true>(q, k, v, out, B, S, T_len, H, KVH,
+                                       kv_len, causal, window, softcap,
+                                       scale, stream)
+               : launch_wgmma<D, false>(q, k, v, out, B, S, T_len, H, KVH,
+                                        kv_len, causal, window, softcap,
+                                        scale, stream);
+  } else {
+    const size_t smem = simt_smem_bytes<D>();
+    auto kernel = flash_attention_simt<D>;
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, int(smem));
+    if (err != cudaSuccess) return err;
+    const dim3 grid((S + BQ - 1) / BQ, H, B);
+    kernel<<<grid, SIMT_THREADS, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
+        kv_len, causal, window, softcap, scale);
+    return cudaGetLastError();
+  }
 }
 
 template <typename T>
@@ -241,6 +788,7 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
+// bf16 q/k/v: the tensor-core kernel, flash_attention_wgmma.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
                                     const void* v, void* out, int B, int S,
                                     int T_len, int H, int KVH, int D,
@@ -252,6 +800,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k,
                                  stream);
 }
 
+// fp32 q/k/v: the CUDA-core kernel, flash_attention_simt.
 extern "C" int flash_attention_f32(const void* q, const void* k,
                                    const void* v, void* out, int B, int S,
                                    int T_len, int H, int KVH, int D,

@@ -2,12 +2,17 @@
 
 ``flash_attention_cuda`` launches ``csrc/flash_attention.cu``, the port of
 the TPU kernel ``repro/kernels/flash_attention.py:flash_attention_kernel``
-(see that source for the design and what bounds it on the card).
-``flash_attention_plain`` repeats the kernel's arithmetic in plain torch —
-the same BQ x BK tiles, the same band skipping, the same fp32 online
-softmax — so the CPU tests exercise it, and ``chip_smoke.py`` holds the
-kernel against it on the card.  ``kernels.ops.flash_attention`` picks
-between the two by the tensors' device.
+(see that source for the design and what bounds it on the card): bf16
+inputs go to the tensor-core kernel (``wgmma``), fp32 inputs to the
+CUDA-core kernel, which keeps fp32 products.  ``flash_attention_plain``
+repeats the kernels' arithmetic in plain torch — the same BQ x BK tiles,
+the same band skipping, the same fp32 online softmax — so the CPU tests
+exercise it, and ``chip_smoke.py`` holds the kernels against it on the
+card.  One difference: the bf16 kernel rounds the probabilities P to bf16
+before P V (they are the tensor cores' A operand), where the plain version
+keeps them in fp32; the output is rounded to bf16 anyway, and the two stay
+within the 2e-2 bf16 tolerance.  ``kernels.ops.flash_attention`` picks
+between the plain version and the kernels by the tensors' device.
 """
 from __future__ import annotations
 
@@ -18,7 +23,7 @@ import torch
 
 from repro_torch.kernels import build
 
-BQ, BK = 64, 32          # the CUDA kernel's tile sizes
+BQ, BK = 64, 64          # the CUDA kernels' tile sizes
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
@@ -95,6 +100,10 @@ def _check(q, k, v, kv_len):
         if t.dim() != 4 or not t.is_contiguous():
             raise ValueError(f"flash_attention: {name} must be a contiguous "
                              f"4-d tensor, got shape {tuple(t.shape)}")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the bf16 kernel copies 16-byte "
+                             f"rows)")
     if q.numel() == 0 or k.numel() == 0:
         raise ValueError("flash_attention: empty input")
     B, S, H, D = q.shape

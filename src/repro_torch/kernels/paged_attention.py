@@ -2,63 +2,98 @@
 
 ``paged_attention_cuda`` launches ``csrc/paged_attention.cu``, the port of
 the TPU kernel ``repro/kernels/paged_attention.py:paged_attention_kernel``
-(see that source for the design and what bounds it on the card).
-``paged_attention_plain`` repeats the kernel's arithmetic in plain torch —
-the sequence walked through its page table in chunks of NT tokens, all G
-query heads of a KV group scored per row, an fp32 online softmax — so the
-CPU tests exercise it, and ``chip_smoke.py`` holds the kernel against it on
-the card.  ``kernels.ops.paged_attention`` picks between the two by the
-tensors' device.
+(see that source for the design and what bounds it on the card).  Both
+sides cut each sequence's capacity ``maxp * ps`` into the same split plan
+(``split_plan``), from the shapes and the card's SM count alone, never from
+``lengths``.  ``paged_attention_plain`` repeats the kernel's arithmetic in
+plain torch: per split, all G query heads of a KV group scored against the
+split's tokens, a partial (m, l, acc) in fp32, then the same merge with
+``exp(m_i - M)`` weights.  The CPU tests exercise it, and ``chip_smoke.py``
+holds the kernel against it on the card.  ``kernels.ops.paged_attention``
+picks between the two by the tensors' device.
 """
 from __future__ import annotations
 
+import functools
 import threading
+from typing import Dict, Tuple
 
 import torch
 
 from repro_torch.kernels import build
 
-NT = 32                  # tokens per chunk, as in the CUDA kernel
+NT = 32                  # a split's span is a multiple of this many tokens
+CPU_SMS = 132            # the H100's SM count, the plan's default off a card
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 DTYPES = (torch.bfloat16, torch.float32)
 
 _count_lock = threading.Lock()
+_workspaces: Dict[Tuple[torch.device, int],
+                  Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+@functools.lru_cache(maxsize=None)
+def split_plan(batch: int, kv_heads: int, capacity: int,
+               sms: int) -> Tuple[int, int]:
+    """(n_split, span): split s covers tokens [s * span, (s+1) * span) of
+    [0, capacity), so the splits cover every token once.  About two blocks
+    an SM, ``n_split = ceil(2 * sms / (batch * kv_heads))``, clamped to
+    [1, ceil(capacity / NT)]; the span is rounded up to NT tokens, and the
+    splits that rounding leaves empty are dropped."""
+    n = -(-2 * sms // (batch * kv_heads))
+    n = max(1, min(n, -(-capacity // NT)))
+    span = NT * -(-capacity // (n * NT))
+    return -(-capacity // span), span
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of the card (cached), CPU_SMS off a card."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return CPU_SMS
+    return _cuda_sms(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _cuda_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def paged_attention_plain(q, k_pages, v_pages, page_tables, lengths, *,
                           scale: float, softcap: float = 0.0):
     """q: [B, H, D]; k/v_pages: [P, ps, KVH, D]; page_tables: [B, maxp];
-    lengths: [B] -> [B, H, D] in q's dtype."""
+    lengths: [B] -> [B, H, D] in q's dtype.  The split plan is the
+    kernel's for the SM count of q's device (CPU_SMS on the CPU)."""
     B, H, D = q.shape
     _, ps, KVH, _ = k_pages.shape
     maxp = page_tables.shape[1]
     G = H // KVH
+    n_split, span = split_plan(B, KVH, maxp * ps, sm_count(q.device))
     n_tok = torch.clamp(lengths.long().to(q.device), max=maxp * ps)
     pt = page_tables.long().to(q.device)
     qf = q.float().reshape(B, KVH, G, D)
-    m = torch.full((B, KVH, G), NEG_INF, device=q.device)
-    l = torch.zeros((B, KVH, G), device=q.device)
-    acc = torch.zeros((B, KVH, G, D), device=q.device)
-    for t0 in range(0, int(n_tok.max()) if B else 0, NT):
-        t = torch.arange(t0, min(t0 + NT, maxp * ps), device=q.device)
+    ms, ls, accs = [], [], []
+    for s0 in range(0, n_split * span, span):
+        t = torch.arange(s0, min(s0 + span, maxp * ps), device=q.device)
         page = pt[:, t // ps]                            # [B, nt]
         kt = k_pages[page, t % ps].float()               # [B, nt, KVH, D]
         vt = v_pages[page, t % ps].float()
         s = torch.einsum("bhgd,bthd->bhgt", qf, kt) * scale
         if softcap > 0:
             s = torch.tanh(s / softcap) * softcap
-        s = torch.where((t[None] < n_tok[:, None])[:, None, None], s, NEG_INF)
-        m_new = torch.maximum(m, s.amax(-1))
-        alpha = torch.exp(m - m_new)
-        p = torch.exp(s - m_new[..., None])
-        # a block stops at its own sequence's end: chunks past it change
-        # nothing
-        live = (t0 < n_tok)[:, None, None]
-        l = torch.where(live, l * alpha + p.sum(-1), l)
-        acc = torch.where(live[..., None], acc * alpha[..., None]
-                          + torch.einsum("bhgt,bthd->bhgd", p, vt), acc)
-        m = torch.where(live, m_new, m)
+        valid = (t[None] < n_tok[:, None])[:, None, None]   # [B, 1, 1, nt]
+        s = torch.where(valid, s, NEG_INF)
+        m = s.amax(-1)                                   # NEG_INF: empty
+        p = torch.where(valid, torch.exp(s - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        accs.append(torch.einsum("bhgt,bthd->bhgd", p, vt))
+    m = torch.stack(ms)                                  # [n_split, B, KVH, G]
+    w = torch.exp(m - m.amax(0))
+    l = (torch.stack(ls) * w).sum(0)
+    acc = (torch.stack(accs) * w[..., None]).sum(0)
     out = acc / torch.clamp_min(l, 1e-30)[..., None]
     return out.reshape(B, H, D).to(q.dtype)
 
@@ -99,6 +134,21 @@ def _check(q, k_pages, v_pages, page_tables, lengths):
                          f"{tuple(lengths.shape)} do not match batch {B}")
 
 
+def _workspace(device: torch.device, stream: int, n_scratch: int,
+               n_tickets: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The combine's fp32 partials and int32 ticket counters for one
+    stream, kept across launches (each launch leaves its tickets 0).
+    Kernels on one stream run in order, and each stream has its own
+    buffers, so no two launches share live partials or counters."""
+    key = (device, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < n_scratch or ws[1].numel() < n_tickets:
+        ws = _workspaces[key] = (
+            torch.empty(n_scratch, dtype=torch.float32, device=device),
+            torch.zeros(n_tickets, dtype=torch.int32, device=device))
+    return ws
+
+
 def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
                          scale: float, softcap: float = 0.0):
     """Launch the CUDA kernel on the current stream; raises on anything
@@ -107,15 +157,23 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
     _check(q, k_pages, v_pages, page_tables, lengths)
     B, H, D = q.shape
     _, ps, KVH, _ = k_pages.shape
+    maxp = page_tables.shape[1]
+    n_split, span = split_plan(B, KVH, maxp * ps, _cuda_sms(q.device.index))
     out = torch.empty_like(q)
     lib = build.load()
     fn = (lib.paged_attention_bf16 if q.dtype == torch.bfloat16
           else lib.paged_attention_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
+        scratch = tickets = None
+        if n_split > 1:
+            scratch, tickets = _workspace(q.device, stream,
+                                          B * H * n_split * (D + 2), B * KVH)
+            scratch, tickets = scratch.data_ptr(), tickets.data_ptr()
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-                 B, H, KVH, D, ps, page_tables.shape[1], float(scale),
+                 scratch, tickets,
+                 B, H, KVH, D, ps, maxp, n_split, span, float(scale),
                  float(softcap), stream)
     build.check(err, "paged_attention")
     with _count_lock:

@@ -59,6 +59,13 @@ def close(got, want, **tol):
     (80, 80, 4, 2, 32, dict(causal=False)),
     (48, 100, 4, 2, 64, dict(causal=False, kv_len=70)),
     (300, 300, 16, 16, 128, {}),                 # olmo-1b's heads
+    (891, 891, 16, 16, 128, {}),                 # the main prefill shape
+    (1, 1, 4, 2, 128, {}),                       # the 64-row tile edges
+    (63, 63, 4, 2, 128, {}),
+    (64, 64, 4, 2, 128, {}),
+    (65, 65, 4, 2, 128, {}),
+    (129, 129, 4, 2, 128, {}),
+    (80, 80, 4, 2, 32, dict(window=16, softcap=25.0)),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_matches_plain(cuda, S, T, H, KVH, D, kw, dtype):
@@ -73,6 +80,33 @@ def test_flash_attention_matches_plain(cuda, S, T, H, KVH, D, kw, dtype):
     assert got.dtype == q.dtype and got.shape == q.shape
     close(got, FA.flash_attention_plain(q, k, v, scale=D ** -0.5, **kw),
           **tol_for(dtype))
+
+
+MASKS = {"causal": {}, "window": dict(window=256),
+         "softcap": dict(softcap=50.0),
+         "window-softcap": dict(window=100, softcap=50.0),
+         "noncausal": dict(causal=False),
+         "kv_len": dict(causal=False, kv_len=2 / 3)}   # of the keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(MASKS))
+@pytest.mark.parametrize("S", [142, 404, 891])
+@pytest.mark.parametrize("D", [64, 128])
+def test_flash_attention_tensor_cores_at_model_width(cuda, D, S, mask):
+    """The bf16 (wgmma) kernel at olmo-1b's 16 heads, at the engine's
+    shortest, a middle and its longest prompt, under every mask: the P V
+    product's shared-memory descriptors differ between D = 64 and 128."""
+    kw = dict(MASKS[mask])
+    if "kv_len" in kw:
+        kw["kv_len"] = int(S * kw["kv_len"])
+    rng = np.random.default_rng(S + D)
+    q, k, v = (on(cuda, rng.standard_normal((1, S, 16, D)), torch.bfloat16)
+               for _ in range(3))
+    got = ops.flash_attention(q, k, v, scale=D ** -0.5, **kw)
+    torch.cuda.synchronize()
+    close(got, FA.flash_attention_plain(q, k, v, scale=D ** -0.5, **kw),
+          **tol_for("bfloat16"))
 
 
 @pytest.mark.cuda
@@ -105,6 +139,57 @@ def test_paged_attention_matches_plain(cuda, B, H, KVH, D, ps, maxp,
                                         scale=D ** -0.5,
                                         softcap=0.0 if identity else 30.0),
           **tol_for(dtype))
+
+
+def paged_inputs(dev, rng, B, H, KVH, D, ps, maxp, lengths, dtype):
+    P = B * maxp + 1
+    q = on(dev, rng.standard_normal((B, H, D)), dtype)
+    kp = on(dev, rng.standard_normal((P, ps, KVH, D)), dtype)
+    vp = on(dev, rng.standard_normal((P, ps, KVH, D)), dtype)
+    pt = torch.from_numpy(rng.permutation(P)[:B * maxp].reshape(B, maxp)
+                          .astype(np.int32)).to(dev)
+    return q, kp, vp, pt, torch.tensor(lengths, dtype=torch.int32,
+                                       device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,D,ps,maxp,lengths", [
+    (4, 16, 16, 128, 64, 15, [1, 1, 1, 1]),     # length 1: splits empty
+    (4, 16, 16, 128, 64, 15, [960] * 4),        # at capacity
+    (1, 2, 1, 64, 16, 60, [40]),                # 30 splits over 2 chunks
+    (2, 24, 2, 64, 16, 4, [50, 7]),             # G = 12: chunks of 8
+    (33, 16, 8, 128, 16, 4,                     # B * KVH = 264: one split
+     [1 + (i * 13) % 64 for i in range(33)]),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_split_edges(cuda, B, H, KVH, D, ps, maxp, lengths,
+                                     dtype):
+    args = paged_inputs(cuda, np.random.default_rng(B + H + D), B, H, KVH,
+                        D, ps, maxp, lengths, DTYPES[dtype])
+    got = ops.paged_attention(*args, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    close(got, PA.paged_attention_plain(*args, scale=D ** -0.5),
+          **tol_for(dtype))
+
+
+@pytest.mark.cuda
+def test_paged_attention_tickets_reset(cuda):
+    """The split combine's tickets return to 0 after every launch: two
+    launches in a row and one on a second stream give the same output."""
+    args = paged_inputs(cuda, np.random.default_rng(5), 4, 16, 16, 128, 64,
+                        15, [907, 715, 602, 385], torch.bfloat16)
+    assert PA.split_plan(4, 16, 960, PA.sm_count(cuda))[0] > 1
+    first = PA.paged_attention_cuda(*args, scale=0.1)
+    second = PA.paged_attention_cuda(*args, scale=0.1)
+    side = torch.cuda.Stream(cuda)
+    side.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(side):
+        third = PA.paged_attention_cuda(*args, scale=0.1)
+    torch.cuda.current_stream(cuda).wait_stream(side)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second) and torch.equal(first, third)
+    close(first, PA.paged_attention_plain(*args, scale=0.1),
+          **tol_for("bfloat16"))
 
 
 @pytest.mark.cuda

@@ -144,6 +144,17 @@ def test_flash_attention_variants(window, softcap, causal):
         close(got, pallas, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_attention_tile_edges(S):
+    """Prompt lengths at the edges of the kernels' 64-key and 128-row
+    tiles."""
+    args = flash_case(np.random.default_rng(S), 1, S, 4, 2, 32)
+    (qj, kj, vj), (qt, kt, vt) = zip(*args)
+    want = JR.ref_flash_attention(qj, kj, vj, scale=0.3, causal=True)
+    close(FA.flash_attention_plain(qt, kt, vt, scale=0.3), want,
+          rtol=2e-5, atol=2e-5)
+
+
 def test_flash_attention_kv_len():
     """kv_len masks the keys' tail (the Pallas wrapper's padding mask)."""
     args = flash_case(np.random.default_rng(5), 1, 48, 4, 2, 64, T=100)
