@@ -9,23 +9,26 @@ fallback):
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
 3. kernels  each CUDA kernel against its plain torch version on the card,
-            at the main path's shapes and the sweep shapes of
-            ``tests/test_kernels.py``; times the kernel, the plain version
+            at the main path's shapes, the sweep shapes of
+            ``tests/test_kernels.py`` and the edges of the kernels' tiles
+            (the SSD scan also shows which variant ran: bf16 must take the
+            tensor cores); times the kernel, the plain version
             and one PyTorch library call where one computes the same
             function, beside the card's bound, and the kernel's and the
             call's device time alone and the wrapper's host time.
 Then for each model, olmo-1b and mamba2-780m, at full published width
 (random weights from --seed):
 4. model    prefill plus 16 decode steps on the kernel path against the
-            plain path, teacher-forced; then one decode step at the
-            engine's shape, timed and traced with torch.profiler (device
-            busy share, launches, costliest kernels).
+            plain path, teacher-forced; then a prefill of the longest
+            prompt and one decode step at the engine's shape, each timed
+            and traced with torch.profiler (device busy share, launches,
+            costliest kernels).
 5. engine   RealEngine in passthrough, static_colocate, dynamic_pd and
             disagg: 8 requests, prompts of 128-1024 tokens, 32 new tokens
             each, arriving as a burst.  Every request must complete, with
             the same tokens in every mode, and the launch counters (reset
             just before each mode) must show the engine ran through the
-            model's kernels.
+            model's kernels, every SSD scan on the tensor cores.
 6. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -35,6 +38,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -77,6 +81,20 @@ def card_line() -> str:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def kernel_label(ptxas_line: str) -> str:
+    """``ssd_chunk_scan<64,128>`` from ptxas's "Compiling entry function
+    '<mangled name>'" line (integer and bool template arguments only)."""
+    m = re.search(r"\d+((?:flash|paged|ssd)_\w*?)(I|E)", ptxas_line)
+    if m is None:
+        return ptxas_line.strip()
+    if m.group(2) == "E":
+        return m.group(1)
+    span = re.match(r"(?:L[ib]\d+E|\d+__nv_bfloat16|f)*",
+                    ptxas_line[m.end():]).group(0)
+    args = re.findall(r"L[ib](\d+)E", span)
+    return f"{m.group(1)}<{','.join(args)}>"
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -352,9 +370,11 @@ def ssd_inputs(B, S, H, P, G, N, dt_type, gen, *, init):
     return args, (randn(B, H, P, N) if init else None)
 
 
-def check_ssd(prompt_lens, gen):
-    from repro_torch.kernels import ssd_scan as SSD
-    S = max(prompt_lens)
+def ssd_cases(S: int):
+    """(label, (B, S, H, P, G, N, chunk), dtype, init) — the sweeps of
+    tests/test_kernels.py, the bf16 kernel's 64-row tile and chunk edges
+    at mamba2-780m's widths, the reduced model's and the widest shapes,
+    then the engine's prefill at the longest prompt."""
     main = (1, S, 48, 64, 1, 128, 256)          # mamba2-780m's prefill
     cases = []
     for dt_type in (torch.float32, torch.bfloat16):
@@ -363,17 +383,38 @@ def check_ssd(prompt_lens, gen):
             cases.append(("sweep", shape, dt_type, False))
         cases.append(("initial state", (1, 40, 2, 16, 1, 16, 16), dt_type,
                       True))
-    cases += [("main", main, torch.bfloat16, False),
-              ("main", main, torch.bfloat16, True)]
+    for init in (False, True):
+        for S_, chunk in [(63, 256), (64, 256), (65, 256), (255, 256),
+                          (256, 256), (257, 256), (1024, 256), (300, 64),
+                          (300, 128)]:
+            cases.append(("edge", (1, S_, 48, 64, 1, 128, chunk),
+                          torch.bfloat16, init))
+        cases += [("reduced", (2, 100, 16, 16, 1, 16, 32), torch.bfloat16,
+                   init),
+                  ("P=N=128", (1, 300, 4, 128, 1, 128, 256), torch.bfloat16,
+                   init),
+                  ("main", main, torch.bfloat16, init)]
+    return main, cases
+
+
+def check_ssd(prompt_lens, gen):
+    from repro_torch.kernels import ssd_scan as SSD
+    S = max(prompt_lens)
+    main, cases = ssd_cases(S)
     main_err = 0.0
     for label, (B, S_, H, P, G, N, chunk), dt_type, init in cases:
         args, st = ssd_inputs(B, S_, H, P, G, N, dt_type, gen, init=init)
+        variant = "wgmma" if dt_type == torch.bfloat16 else "cuda_core"
+        before = SSD.ssd_scan_cuda.variant_launches[variant]
         y, fin = SSD.ssd_scan_cuda(*args, chunk=chunk, initial_state=st)
         torch.cuda.synchronize()
+        require(SSD.ssd_scan_cuda.variant_launches[variant] == before + 1,
+                f"ssd_scan {label}: {str(dt_type)[6:]} did not run the "
+                f"{variant} kernel")
         y_ref, fin_ref = SSD.ssd_scan_plain(*args, chunk=chunk,
                                             initial_state=st)
         name = (f"ssd_scan {label} [{B},{S_},{H},{P}] G={G} N={N} "
-                f"chunk={chunk} init={init} {str(dt_type)[6:]}")
+                f"chunk={chunk} init={init} {str(dt_type)[6:]} ({variant})")
         err = max(check_close(f"{name} y", y, y_ref, dt_type, SSD_TOL),
                   check_close(f"{name} final state", fin, fin_ref, dt_type,
                               SSD_TOL))
@@ -486,11 +527,70 @@ def check_model(cfg, params, seed: int):
                    got, same)
 
 
+def print_trace(prof, per: int, host_ms: float, what: str):
+    """From a torch.profiler trace of ``per`` runs: the device's busy time
+    a run, its share of ``host_ms``, the kernel launches and the costliest
+    kernels.  Returns (busy ms, launches, {kernel: ms}), a run each."""
+    from torch.autograd import DeviceType
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / per
+    n_launch = sum(e.count for e in kernels) / per
+    print(f"  {what}: profiler: device busy {busy_ms!r} ms "
+          f"({n_launch:.0f} kernel launches)")
+    by_kernel = {e.key: e.self_device_time_total / 1e3 / per
+                 for e in kernels}
+    if busy_ms == 0:
+        print(f"  {what}: device busy share: not measured (the profiler saw "
+              f"no CUDA kernel)")
+        return busy_ms, n_launch, by_kernel
+    print(f"  {what}: device busy share {busy_ms / host_ms!r}")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"    {e.self_device_time_total / 1e3 / per:8.4f} ms "
+              f"x{e.count // per:<4d} {e.key[:90]}")
+    return busy_ms, n_launch, by_kernel
+
+
+def profile_prefill(cfg, params, prompt_len: int, seed: int, runs: int = 5):
+    """One prefill of a ``prompt_len``-token prompt (batch 1) into a cache
+    of that length, as the engine runs it: its host-clock time (median of
+    ``runs``), then one run traced with torch.profiler.  Returns the host
+    times and print_trace's numbers."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    cache = model.init_cache(1, prompt_len, device="cuda")
+    rng = np.random.default_rng(seed + 2)
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, prompt_len)),
+                        dtype=torch.long, device="cuda")
+
+    def run():
+        model.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+
+    run()                                           # warm up
+    host_ms = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        run()
+        host_ms.append(1e3 * (time.monotonic() - t0))
+    what = f"prefill of {prompt_len} tokens"
+    print(f"  {what}: host clock {float(np.median(host_ms))!r} ms (median "
+          f"of {runs}: {', '.join(f'{t:.3f}' for t in sorted(host_ms))})")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    busy_ms, n_launch, by_kernel = print_trace(
+        prof, 1, float(np.median(host_ms)), what)
+    return dict(host_ms=host_ms, busy_ms=busy_ms, launches=n_launch,
+                by_kernel=by_kernel)
+
+
 def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
     """One decode step at the engine's shape (MAX_NUM_SEQS sequences over a
     max_len slot cache): its host-clock time, and from torch.profiler the
     device's busy time, its kernel launches and its costliest kernels."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model
@@ -512,25 +612,13 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
         run()
         host_ms.append(1e3 * (time.monotonic() - t0) / steps)
     step_ms = float(np.median(host_ms))
+    what = f"decode step at the engine's shape (batch {B}, cache {max_len})"
+    print(f"  {what}: host clock {step_ms!r} ms (median of 5 runs of "
+          f"{steps} steps: {', '.join(f'{t:.3f}' for t in sorted(host_ms))})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / steps
-    n_launch = sum(e.count for e in kernels) / steps
-    print(f"  decode step at the engine's shape (batch {B}, cache {max_len}):"
-          f" host clock {step_ms!r} ms (median of 5 runs of {steps} steps: "
-          f"{', '.join(f'{t:.3f}' for t in sorted(host_ms))}); profiler: "
-          f"device busy {busy_ms!r} ms ({n_launch:.0f} kernel launches)")
-    if busy_ms == 0:
-        print("  device busy share: not measured (the profiler saw no CUDA "
-              "kernel)")
-        return
-    print(f"  device busy share of the step: {busy_ms / step_ms!r}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"    {e.self_device_time_total / 1e3 / steps:8.4f} ms "
-              f"x{e.count // steps:<4d} {e.key[:90]}")
+    print_trace(prof, steps, step_ms, what)
 
 
 # ------------------------------------------------------------------- engine
@@ -566,7 +654,11 @@ def check_launches(cfg, mode: str, counts) -> None:
 
 
 def run_engine(cfg, params, prompts, max_len):
+    """Serve ``prompts`` in every mode.  Returns the launches of each
+    kernel and the SSD scan's launches by variant, summed over the
+    modes."""
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
     from repro_torch.models import build_model
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.request import Request
@@ -578,6 +670,7 @@ def run_engine(cfg, params, prompts, max_len):
           f"disagg moves through host memory)")
     del one
     tokens, totals = {}, dict.fromkeys(launch_counts(), 0)
+    variants = dict.fromkeys(ssd_scan_cuda.variant_launches, 0)
     for mode in MODES:
         reqs = [Request(prompt_len=len(p), max_new_tokens=MAX_NEW,
                         prompt_tokens=p, arrival_time=0.0) for p in prompts]
@@ -595,22 +688,29 @@ def run_engine(cfg, params, prompts, max_len):
         counts = launch_counts()
         for k, n in counts.items():
             totals[k] += n
+        ssd_variants = dict(ssd_scan_cuda.variant_launches)
+        for k, n in ssd_variants.items():
+            variants[k] += n
         tokens[mode] = [r.output_tokens for r in reqs]
         print(f"  engine[{cfg.name} {mode}]: completed={res['completed']} "
               f"failed={res['failed']} ttft_mean_s={res['ttft_mean_s']!r} "
               f"ttft_p95_s={res['ttft_p95_s']!r} "
               f"tpot_mean_s={res['tpot_mean_s']!r} wall_s={wall!r} "
-              f"launches={counts}")
+              f"launches={counts} ssd_scan variants={ssd_variants}")
         require(res["completed"] == N_REQUESTS and res["failed"] == 0,
                 f"engine[{mode}]: {res['completed']}/{N_REQUESTS} completed")
         require(all(len(t) == MAX_NEW for t in tokens[mode]),
                 f"engine[{mode}]: a request stopped short")
         check_launches(cfg, mode, counts)
+        # the model runs in bf16: every prefill scan on the tensor cores
+        require(ssd_variants["wgmma"] == counts["ssd_scan"],
+                f"engine[{mode}]: ssd_scan variants {ssd_variants}, "
+                f"{counts['ssd_scan']} launches")
     for mode in MODES[1:]:
         require(tokens[mode] == tokens[MODES[0]],
                 f"engine: {mode} tokens differ from {MODES[0]}")
     print(f"  engine: tokens identical across {', '.join(MODES)}")
-    return totals
+    return totals, variants
 
 
 def main() -> int:
@@ -640,9 +740,14 @@ def main() -> int:
     build.load()
     print(f"[build] {lib_path.relative_to(ROOT)} in "
           f"{time.monotonic() - t0:.1f} s")
+    kernel, serialised = "", 0
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print(f"  {line.strip()}")
+        if "Compiling entry" in line:
+            kernel = kernel_label(line)
+        elif "Used" in line or "spill" in line:
+            print(f"  {kernel}: {line.split(':', 1)[-1].strip()}")
+        serialised += "C7519" in line    # wgmma fenced by ptxas
+    print(f"  ptxas injected {serialised} warpgroup.arrive fences")
 
     # 3. kernels against their plain versions
     from repro_torch.models import build_model
@@ -660,6 +765,7 @@ def main() -> int:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
     launches = dict.fromkeys((k["name"] for k in kernels), 0)
+    ssd_variants = {}
     for cfg in cfgs:
         # 4. model
         prompts, _ = engine_traffic(args.seed, cfg.vocab_size)
@@ -669,13 +775,17 @@ def main() -> int:
         print(f"[model] {cfg.name} full width, {n_params} parameters, "
               f"initialised in {time.monotonic() - t0:.1f} s")
         check_model(cfg, params, args.seed)
+        profile_prefill(cfg, params, max(prompt_lens), args.seed)
         profile_decode(cfg, params, prompt_lens, max_len)
 
         # 5. engine (the main path: counters reset just before each mode)
         print(f"[engine] {cfg.name}: {N_REQUESTS} requests x {MAX_NEW} new "
               f"tokens, burst, max_num_seqs={MAX_NUM_SEQS}")
-        for name, n in run_engine(cfg, params, prompts, max_len).items():
+        totals, variants = run_engine(cfg, params, prompts, max_len)
+        for name, n in totals.items():
             launches[name] += n
+        for name, n in variants.items():
+            ssd_variants[name] = ssd_variants.get(name, 0) + n
         del params
         torch.cuda.empty_cache()
 
@@ -683,6 +793,9 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["passed"] = True
+        if k["name"] == "ssd_scan":      # the variants the main path ran
+            k["variant"] = "+".join(v for v, n in ssd_variants.items() if n)
+            k["variant_launches"] = ssd_variants
         del k["shape"]
     print(json.dumps({"kernels": kernels}))
     print(card)

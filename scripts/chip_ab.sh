@@ -29,7 +29,7 @@ rc=$?; echo "cuda_tests.log rc=$rc: $(tail -n 1 "$OUT/cuda_tests.log")"
 [ $rc = 0 ] || status=1
 for turn in this1 other1 this2 other2; do
   echo "== smoke_$turn.log"
-  grep -E "^\[build\]|_attention at|ssd_scan at|decode step|busy share|^ +[0-9.]+ ms x|engine\[" \
+  grep -E "^\[build\]|_attention at|ssd_scan at|decode step|prefill of|busy share|^ +[0-9.]+ ms x|engine\[" \
     "$OUT/smoke_$turn.log" | cut -c1-400
   tail -n 3 "$OUT/smoke_$turn.log" | cut -c1-2500
   echo "== wrapper_$turn.json"; cat "$OUT/wrapper_$turn.json"

@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
-"""Host cost and device time of the attention kernels' wrappers, for the
-port in one checkout.
+"""Host cost and device time of the kernels' wrappers, and the prefill and
+decode times they feed, for the port in one checkout.
 
     python3 scripts/wrapper_cost.py [--root DIR] [--iters N] [--repeats R]
 
 Builds the kernels of ``DIR/src/repro_torch`` (default: this checkout) and
-calls its ``flash_attention_cuda`` and ``paged_attention_cuda`` at
-``chip_smoke.py``'s main shapes (flash q/k/v [1, 891, 16, 128] bf16
-causal; paged q [4, 16, 128] over the [4, 960, 16, 128] bf16 slot cache)
-with that script's timers, R times each:
+calls its ``flash_attention_cuda``, ``paged_attention_cuda`` and
+``ssd_scan_cuda`` at ``chip_smoke.py``'s main shapes (flash q/k/v
+[1, 891, 16, 128] bf16 causal; paged q [4, 16, 128] over the
+[4, 960, 16, 128] bf16 slot cache; SSD x [1, 891, 48, 64] bf16, B/C
+[1, 891, 1, 128], with initial state, chunk 256) with that script's
+timers, R times each:
 
 - ``ms``: CUDA events around N back-to-back calls, the pace a caller sees
   (set by the host where a call's host-side work outlasts its kernel);
@@ -19,14 +21,19 @@ with that script's timers, R times each:
 Then the host clock of one olmo-1b decode step at the engine's shape (4
 sequences over the 960-slot cache, full width, random weights from seed
 0), R runs of 8 steps, each to a synchronize, as ``chip_smoke.py`` takes
-it.  Run it on two checkouts on one card to compare their wrappers.  Needs an
-NVIDIA card; prints one JSON line.
+it; and mamba2-780m's prefill of the 891-token prompt at full width, R
+runs on the host clock and one traced with torch.profiler (device busy
+time, launches, and the device time of the SSD scan's kernels), as
+``chip_smoke.py::profile_prefill`` takes it.  Run it on two checkouts on
+one card to compare them.  Needs an NVIDIA card; prints one JSON line.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
+import re
 import sys
 import time
 
@@ -53,6 +60,7 @@ def main() -> int:
     from repro_torch.kernels import build
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import paged_attention as PA
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models import build_model
     from repro_torch.models.layers import page_size
     assert FA.__file__.startswith(src), FA.__file__
@@ -72,11 +80,15 @@ def main() -> int:
     pargs = CS.paged_inputs(CS.MAX_NUM_SEQS, 16, 16, 128, ps, max_len // ps,
                             torch.bfloat16, gen, identity=True,
                             lengths=main_lens)
+    sargs, sst = CS.ssd_inputs(1, S, 48, 64, 1, 128, torch.bfloat16, gen,
+                               init=True)
     calls = {
         "flash_attention": lambda: FA.flash_attention_cuda(
             q, k, v, scale=128 ** -0.5),
         "paged_attention": lambda: PA.paged_attention_cuda(
             *pargs, scale=128 ** -0.5),
+        "ssd_scan": lambda: SSD.ssd_scan_cuda(*sargs, chunk=256,
+                                              initial_state=sst),
     }
     result = {"root": os.path.abspath(args.root), "card": CS.card_line()}
     for name, fn in calls.items():
@@ -104,6 +116,22 @@ def main() -> int:
 
     steps()                                         # warm up
     result["decode_step_host_ms"] = [steps() for _ in range(args.repeats)]
+    del params, cache
+    torch.cuda.empty_cache()
+
+    cfg = get_config("mamba2-780m")
+    params = build_model(cfg).init(0, device="cuda")
+    with contextlib.redirect_stdout(sys.stderr):     # its report, to stderr
+        pre = CS.profile_prefill(cfg, params, S, 0, runs=args.repeats)
+    ssd = {}                                         # device ms by kernel
+    for k, ms in pre["by_kernel"].items():
+        if "ssd" in k:
+            name = re.search(r"ssd_\w+", k).group(0)
+            ssd[name] = ssd.get(name, 0.0) + ms
+    result["mamba2_prefill"] = dict(
+        host_ms=pre["host_ms"], busy_ms=pre["busy_ms"],
+        launches=pre["launches"], ssd_kernels_ms=sum(ssd.values()),
+        ssd_by_kernel=ssd)
     print(json.dumps(result))
     return 0
 

@@ -2,9 +2,10 @@
 
 Every ``csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one ``nvcc``
 per source, all started together) and linked into one shared library with
-a plain C interface.  The library lands in ``build/kernels/<hash>/`` at the
-repository root, keyed by a hash of the sources and flags, so a checkout
-builds once and a changed source rebuilds.  Nothing here runs at import
+a plain C interface; ``csrc/*.cuh`` are headers they share.  The library
+lands in ``build/kernels/<hash>/`` at the repository root, keyed by a hash
+of the sources, headers and flags, so a checkout builds once and a changed
+source rebuilds.  Nothing here runs at import
 time: the CPU tests import every module without ``nvcc`` or a card.
 """
 from __future__ import annotations
@@ -36,10 +37,10 @@ SIGNATURES = {
     # H, KVH, D, ps, maxp, n_split, span, scale, softcap, stream
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                         _I, _I, _I, _F, _F, _P],
-    # x, dt, A, Bm, Cm, initial_state (or NULL), y, final_state, B, S, H,
-    # G, P, N, chunk, stream
-    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                 _P],
+    # x, dt, A, Bm, Cm, initial_state (or NULL), y, final_state, workspace
+    # (bf16 only), B, S, H, G, P, N, chunk, stream
+    "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                 _I, _P],
 }
 
 _lock = threading.Lock()
@@ -65,7 +66,7 @@ def nvcc() -> str:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+    for src in sorted([*sources(), *CSRC.glob("*.cuh")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

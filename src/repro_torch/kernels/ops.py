@@ -65,5 +65,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    """Zero every wrapper's count, and its counts by variant where it
+    keeps them (``ssd_scan``: "wgmma" and "cuda_core")."""
     for fn in CUDA_WRAPPERS.values():
         fn.launches = 0
+        variants = getattr(fn, "variant_launches", {})
+        for name in variants:
+            variants[name] = 0

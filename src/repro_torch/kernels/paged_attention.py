@@ -167,9 +167,11 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
         stream = torch.cuda.current_stream(q.device).cuda_stream
         scratch = tickets = None
         if n_split > 1:
-            scratch, tickets = _workspace(q.device, stream,
-                                          B * H * n_split * (D + 2), B * KVH)
-            scratch, tickets = scratch.data_ptr(), tickets.data_ptr()
+            # ws is held until the launch is issued: a growth by another
+            # thread frees the old pair, whose bytes must not be reused first
+            ws = _workspace(q.device, stream, B * H * n_split * (D + 2),
+                            B * KVH)
+            scratch, tickets = ws[0].data_ptr(), ws[1].data_ptr()
         err = fn(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                  page_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(),
                  scratch, tickets,

@@ -1,14 +1,16 @@
 """Mamba-2 SSD chunked scan: the CUDA kernel's wrapper and its plain version.
 
 ``ssd_scan_cuda`` launches ``csrc/ssd_scan.cu``, the port of the TPU kernel
-``repro/kernels/ssd_scan.py:ssd_scan_kernel`` (see that source for the
-design and what bounds it on the card).  ``ssd_scan_plain`` repeats the
-kernel's per-chunk algorithm in plain torch — the intra-chunk
-``(C Bᵀ ∘ L)(dt·x)``, the ``exp(cum)``-weighted read of the carried fp32
-``[P, N]`` state, the state update, and a ragged tail padded with
-``dt = 0`` — so the CPU tests exercise it, and ``chip_smoke.py`` holds the
-kernel against it on the card.  ``kernels.ops.ssd_scan`` picks between the
-two by the tensors' device.
+``repro/kernels/ssd_scan.py:ssd_scan_kernel`` (``csrc/ssd_scan.cu`` says
+what bounds it on the card and what its design does about it).  bf16 runs
+the SSD decomposition on the tensor cores in three launches (chunk state,
+state passing, chunk scan); fp32 runs the first port's CUDA-core kernel.
+``ssd_scan_plain`` runs the same three steps in plain torch and fp32 —
+each chunk's own state contribution, the states passed from chunk to
+chunk, then each chunk's rows from the state before it and the
+decay-masked ``(C Bᵀ ∘ L ∘ dt) x`` — so the CPU tests exercise it, and
+``chip_smoke.py`` holds the kernel against it on the card.
+``kernels.ops.ssd_scan`` picks between the two by the tensors' device.
 """
 from __future__ import annotations
 
@@ -36,43 +38,56 @@ def ssd_scan_plain(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     """x: [B, S, H, P]; dt: [B, S, H] (>= 0); A: [H] (< 0);
     Bm/Cm: [B, S, G, N] (head h reads group h // (H/G));
     initial_state: [B, H, P, N] or None.
-    Returns (y [B, S, H, P] in x's dtype, final state [B, H, P, N] fp32)."""
+    Returns (y [B, S, H, P] in x's dtype, final state [B, H, P, N] fp32).
+
+    The bf16 kernel's three steps, in fp32: (1) each chunk's own state
+    contribution dS_c, (2) the states passed from chunk to chunk,
+    S_c = exp(cum_last_c) S_{c-1} + dS_c, (3) each chunk's rows from
+    C S_{c-1}ᵀ and the decay-masked (C Bᵀ ∘ L ∘ dt) x.  Each product's
+    first operand is the fp32 one (the decayed dt·x weights, S_{c-1}, W;
+    C in C Bᵀ); its second is x, B or C, which the kernel takes exactly."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
+    R = H // G
     Q = effective_chunk(chunk, S)
     pad = (-S) % Q
+    nc = (S + pad) // Q
     # the ragged tail: dt = 0 there gives decay 1 and no contribution
-    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad))
-    dtf = F.pad(dt.float(), (0, 0, 0, pad))
-    Bh = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2)
-    Ch = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad)).repeat_interleave(rep, 2)
-    Af = A.float()
+    xf = F.pad(x.float(), (0, 0, 0, 0, 0, pad)).view(Bsz, nc, Q, G, R, P)
+    dtf = F.pad(dt.float(), (0, 0, 0, pad)).view(Bsz, nc, Q, G, R)
+    Bc = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad)).view(Bsz, nc, Q, G, N)
+    Cc = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad)).view(Bsz, nc, Q, G, N)
+    cum = torch.cumsum(dtf * A.float().view(G, R), dim=2)  # [B, c, Q, G, R]
+    last = cum[:, :, -1]                                   # [B, c, G, R]
+
+    # 1. chunk state: dS_c = sum_j exp(cum_last - cum_j) dt_j x_j B_j^T
+    w = torch.exp(last[:, :, None] - cum) * dtf
+    dS = torch.einsum("bcjgrp,bcjgn->bcgrpn", w[..., None] * xf, Bc)
+
+    # 2. state passing, sequential over the chunks: prev[:, c] = S_{c-1}
     state = (torch.zeros((Bsz, H, P, N), device=x.device)
-             if initial_state is None else initial_state.float().clone())
+             if initial_state is None else initial_state.float())
+    state = state.reshape(Bsz, G, R, P, N)
+    decay = torch.exp(last)
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = decay[:, c, ..., None, None] * state + dS[:, c]
+    prev = torch.stack(prev, 1)                            # [B, c, G, R, P, N]
+
+    # 3. chunk scan: y_i = exp(cum_i) C_i S_{c-1}^T + sum_{j<=i} W_ij x_j,
+    # W = (C_i . B_j) exp(cum_i - cum_j) dt_j; L selected before the exp,
+    # since above the diagonal the exponent is positive and may overflow
+    y = torch.einsum("bcgrpn,bcign->bcigrp", prev, Cc)
+    y = y * torch.exp(cum)[..., None]
     causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
-    ys = []
-    for t0 in range(0, S + pad, Q):
-        xq = xf[:, t0:t0 + Q] * dtf[:, t0:t0 + Q, :, None]   # dt folded in
-        Bc, Cc = Bh[:, t0:t0 + Q], Ch[:, t0:t0 + Q]          # [B, Q, H, N]
-        cum = torch.cumsum(dtf[:, t0:t0 + Q] * Af, dim=1)    # [B, Q, H]
-        # L[i, j] = exp(cum_i - cum_j) for i >= j; selected before the exp,
-        # since above the diagonal the exponent is positive and may overflow
-        seg = cum[:, :, None, :] - cum[:, None, :, :]        # [B, i, j, H]
-        L = torch.exp(torch.where(causal[None, :, :, None], seg,
-                                  -torch.inf))
-        scores = torch.einsum("bihn,bjhn->bijh", Cc, Bc) * L
-        y = torch.einsum("bijh,bjhp->bihp", scores, xq)
-        # the carried state's contribution, decayed to each row
-        y = y + torch.exp(cum)[..., None] * torch.einsum(
-            "bihn,bhpn->bihp", Cc, state)
-        ys.append(y)
-        last = cum[:, -1]                                    # [B, H]
-        w = torch.exp(last[:, None] - cum)                   # [B, Q, H]
-        state = torch.exp(last)[..., None, None] * state + torch.einsum(
-            "bjh,bjhp,bjhn->bhpn", w, xq, Bc)
-    y = torch.cat(ys, 1)[:, :S].to(x.dtype)
-    return y, state
+    seg = cum[:, :, :, None] - cum[:, :, None]             # [B, c, i, j, G, R]
+    L = torch.exp(torch.where(causal[:, :, None, None], seg, -torch.inf))
+    scores = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)
+    W = scores[..., None] * L * dtf[:, :, None]
+    y = y + torch.einsum("bcijgr,bcjgrp->bcigrp", W, xf)
+    y = y.reshape(Bsz, nc * Q, H, P)[:, :S].to(x.dtype)
+    return y, state.reshape(Bsz, H, P, N)
 
 
 def _check(x, dt, A, Bm, Cm, chunk, initial_state):
@@ -85,6 +100,9 @@ def _check(x, dt, A, Bm, Cm, chunk, initial_state):
                              f"the CUDA device of x ({x.device})")
         if not t.is_contiguous():
             raise ValueError(f"ssd_scan: {name} must be contiguous")
+        if t.dtype == torch.bfloat16 and t.data_ptr() % 16:
+            raise ValueError(f"ssd_scan: {name} is not 16-byte aligned "
+                             f"(the bf16 kernel copies 16-byte rows)")
     if x.dtype not in DTYPES or Bm.dtype != x.dtype or Cm.dtype != x.dtype:
         raise TypeError(f"ssd_scan: x/Bm/Cm are {x.dtype}/{Bm.dtype}/"
                         f"{Cm.dtype}; the kernel takes them all bf16 or all "
@@ -120,27 +138,50 @@ def _check(x, dt, A, Bm, Cm, chunk, initial_state):
                          f"{(Bsz, H, P, N)}")
 
 
+def workspace_floats(B: int, S: int, H: int, P: int, N: int,
+                     chunk: int) -> int:
+    """fp32 elements of the bf16 kernel's workspace: each chunk's own state
+    [B, nc, H, P, N] fp32, the state before each chunk as bf16 high and low
+    tiles (as many bytes), then cum and dt [B, H, nc, Q] fp32
+    (csrc/ssd_scan.cu)."""
+    Q = effective_chunk(chunk, S)
+    nc = -(-S // Q)
+    return B * nc * H * (2 * P * N + 2 * Q)
+
+
 def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     """Launch the CUDA kernel on the current stream; raises on anything
-    the kernel does not take.  Counts its launches in ``.launches``."""
+    the kernel does not take.  Counts its launches in ``.launches``, and
+    in ``.variant_launches`` by the kernel that ran: "wgmma" (bf16, the
+    tensor cores) or "cuda_core" (fp32)."""
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
+    Q = effective_chunk(chunk, S)
     y = torch.empty_like(x)
     final = torch.empty((Bsz, H, P, N), dtype=torch.float32, device=x.device)
     lib = build.load()
-    fn = lib.ssd_scan_bf16 if x.dtype == torch.bfloat16 else lib.ssd_scan_f32
+    bf16 = x.dtype == torch.bfloat16
+    fn = lib.ssd_scan_bf16 if bf16 else lib.ssd_scan_f32
+    # the bf16 kernels' three launches pass data through ws: one per call,
+    # so two calls issued from two threads onto one stream never share it
+    # (the caching allocator reuses its bytes only after this call's work)
+    ws = (torch.empty(workspace_floats(Bsz, S, H, P, N, Q),
+                      dtype=torch.float32, device=x.device) if bf16 else None)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
                  Cm.data_ptr(),
                  None if initial_state is None else initial_state.data_ptr(),
-                 y.data_ptr(), final.data_ptr(), Bsz, S, H, G, P, N,
-                 effective_chunk(chunk, S), stream)
+                 y.data_ptr(), final.data_ptr(),
+                 None if ws is None else ws.data_ptr(),
+                 Bsz, S, H, G, P, N, Q, stream)
     build.check(err, "ssd_scan")
     with _count_lock:
         ssd_scan_cuda.launches += 1
+        ssd_scan_cuda.variant_launches["wgmma" if bf16 else "cuda_core"] += 1
     return y, final
 
 
 ssd_scan_cuda.launches = 0
+ssd_scan_cuda.variant_launches = {"wgmma": 0, "cuda_core": 0}

@@ -14,6 +14,7 @@ The SSD scan takes 1e-3 in fp32, as ``tests/test_kernels.py`` does for
 it: its prefix sums and chunk products are summed in another order.
 """
 import math
+import threading
 
 import numpy as np
 import pytest
@@ -275,20 +276,108 @@ def ssd_inputs(dev, seed, B, S, H, P, G, N, dtype, init):
     (1, 20, 2, 32, 1, 32, 256, False),            # chunk > S
     (1, 891, 48, 64, 1, 128, 256, False),         # mamba2-780m prefill
     (1, 891, 48, 64, 1, 128, 256, True),
+    (2, 100, 16, 16, 1, 16, 32, False),           # mamba2-780m .reduced()
+    (2, 100, 16, 16, 1, 16, 32, True),
+    (1, 300, 4, 128, 1, 128, 256, False),         # P = N = 128
+    (1, 300, 4, 128, 1, 128, 256, True),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, init, dtype):
-    args, st = ssd_inputs(cuda, S + P + N, B, S, H, P, G, N, DTYPES[dtype],
+    check_ssd_scan(cuda, B, S, H, P, G, N, chunk, init, dtype)
+
+
+def check_ssd_scan(dev, B, S, H, P, G, N, chunk, init, dtype):
+    """One launch through ops.ssd_scan against the plain version; bf16
+    must run on the tensor cores ("wgmma"), fp32 on CUDA cores."""
+    args, st = ssd_inputs(dev, S + P + N, B, S, H, P, G, N, DTYPES[dtype],
                           init)
+    variant = "wgmma" if dtype == "bfloat16" else "cuda_core"
     before = SSD.ssd_scan_cuda.launches
+    before_variant = dict(SSD.ssd_scan_cuda.variant_launches)
     y, fin = ops.ssd_scan(*args, chunk=chunk, initial_state=st)
     torch.cuda.synchronize()
     assert SSD.ssd_scan_cuda.launches == before + 1
+    assert SSD.ssd_scan_cuda.variant_launches == {
+        k: n + (k == variant) for k, n in before_variant.items()}
     assert y.dtype == args[0].dtype and y.shape == args[0].shape
     assert fin.dtype == torch.float32 and fin.shape == (B, H, P, N)
     y_ref, fin_ref = SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st)
     close(y, y_ref, **ssd_tol(dtype))
     close(fin, fin_ref, **ssd_tol(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,chunk", [
+    (63, 256), (64, 256), (65, 256), (255, 256), (256, 256), (257, 256),
+    (1024, 256), (300, 64), (300, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_tile_edges(cuda, S, chunk, init, dtype):
+    """mamba2-780m's widths (P 64, N 128, one group) at the edges of the
+    bf16 kernel's 64-row tiles and of the chunks."""
+    check_ssd_scan(cuda, 1, S, 8, 64, 1, 128, chunk, init, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [16, 32, 64, 128])
+@pytest.mark.parametrize("P", [16, 32, 64, 128])
+def test_ssd_scan_every_width_on_the_tensor_cores(cuda, P, N):
+    """Every (head_dim, state_dim) the wrapper takes, in bf16: each pair
+    is its own instance of the three tensor-core kernels."""
+    check_ssd_scan(cuda, 2, 130, 4, P, 2, N, 64, True, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_ssd_scan_from_two_threads_on_one_stream(cuda):
+    """Two host threads issue bf16 scans of two shapes onto the one
+    default stream at once, as an engine's replicas and compute queues do.
+    A call's three launches pass data through its workspace, so another
+    call's launches landing between them must not touch it: every result
+    matches the plain version on its own inputs.  In each of five trials a
+    spin kernel holds the stream while the threads issue 200 calls each,
+    so the launches queue behind it and the threads' calls overlap more
+    often than they do on an idle card."""
+    shapes = [(1, 891, 48, 64, 1, 128, 256), (2, 300, 16, 32, 2, 64, 128)]
+    cases = []
+    for i, (B, S, H, P, G, N, chunk) in enumerate(shapes):
+        args, st = ssd_inputs(cuda, 40 + i, B, S, H, P, G, N,
+                              torch.bfloat16, True)
+        cases.append((args, st, chunk))
+    refs = [SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st)
+            for args, st, chunk in cases]
+    reps = 200
+
+    def run(i, start, out, errors):
+        args, st, chunk = cases[i]
+        try:
+            start.wait()
+            for _ in range(reps):
+                out.append(ops.ssd_scan(*args, chunk=chunk,
+                                        initial_state=st))
+        except Exception as e:          # reported below, on the main thread
+            errors.append(e)
+
+    for _ in range(5):
+        start = threading.Barrier(len(cases))
+        results = [[] for _ in cases]
+        errors = []
+        torch.cuda._sleep(int(2e8))     # ~0.1 s of spinning on the stream
+        threads = [threading.Thread(target=run,
+                                    args=(i, start, results[i], errors))
+                   for i in range(len(cases))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        torch.cuda.synchronize()
+        assert not errors, errors
+        for (y_ref, fin_ref), got in zip(refs, results):
+            assert len(got) == reps
+            for y, fin in got:           # compared on the card: 2000 pairs
+                torch.testing.assert_close(y.float(), y_ref.float(),
+                                           **ssd_tol("bfloat16"))
+                torch.testing.assert_close(fin, fin_ref,
+                                           **ssd_tol("bfloat16"))
 
 
 @pytest.mark.cuda

@@ -137,3 +137,52 @@ def test_no_fallback_off_the_cpu():
         ops.ssd_scan(t[0].to("meta"), *t[1:], chunk=8)
     with pytest.raises(ValueError, match="CUDA device"):
         SSD.ssd_scan_cuda(*t, chunk=8)
+
+
+def margin(got, want, tol=2e-2):
+    """max |got - want| / (tol + tol |want|): below 1 passes the card's
+    allclose at rtol = atol = tol."""
+    got, want = got.float(), want.float()
+    return float(((got - want).abs() / (tol + tol * want.abs())).max())
+
+
+def split_bf16(t):
+    """An fp32 operand as the CUDA kernel's two bf16 operands: the high
+    part and the low part of what it leaves (their sum keeps about 16 bits
+    of the mantissa), each back in fp32."""
+    hi = t.to(torch.bfloat16).float()
+    return [hi, (t - hi).to(torch.bfloat16).float()]
+
+
+@pytest.mark.parametrize("S,H,P,G,N,chunk", [
+    (100, 16, 16, 1, 16, 32),        # mamba2-780m .reduced(): P = N = 16
+    (891, 48, 64, 1, 128, 256),      # full width, the engine's longest prompt
+], ids=["reduced", "full-width-891"])
+def test_kernel_operand_rounding_inside_the_card_tolerance(monkeypatch, S, H,
+                                                           P, G, N, chunk):
+    """The bf16 kernel's products take x, B or C exactly as they arrive
+    and split the other, fp32 operand (the decayed dt·x weights, the
+    carried state, W) into a bf16 high and low part.  Emulated here by
+    running the plain version with every einsum's first operand, the fp32
+    one, taken as those parts (C, in C Bᵀ, splits into itself and zero),
+    its y and final state stay inside the 2e-2 at which chip_smoke.py and
+    tests/test_torch_cuda.py hold the kernel against the fp32 plain
+    version.  Prints the margins (1 = at the tolerance), also with the low
+    parts dropped, which is not asserted."""
+    _, t, _, ts = inputs(15, 1, S, H, P, G, N, init=True, dtype="bfloat16")
+    want_y, want_f = SSD.ssd_scan_plain(*t, chunk=chunk, initial_state=ts)
+    einsum = torch.einsum
+    margins = {}
+    for name, split in [("hi+lo", split_bf16),
+                        ("hi only", lambda a: split_bf16(a)[:1])]:
+        def split_einsum(eq, a, b, split=split):
+            return sum(einsum(eq, part, b) for part in split(a))
+        with monkeypatch.context() as m:
+            m.setattr(torch, "einsum", split_einsum)
+            y, f = SSD.ssd_scan_plain(*t, chunk=chunk, initial_state=ts)
+        assert y.dtype == torch.bfloat16
+        margins[name] = (margin(y, want_y), margin(f, want_f))
+    print(f"SSD operand rounding [1,{S},{H},{P}] N={N} chunk={chunk}: "
+          + "; ".join(f"{k}: y margin {m[0]:.3f}, final state margin "
+                      f"{m[1]:.3g}" for k, m in margins.items()))
+    assert max(margins["hi+lo"]) < 1, margins
