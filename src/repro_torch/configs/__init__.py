@@ -9,6 +9,7 @@ from repro_torch.configs.base import (Activation, Family, ModelConfig, Norm,
                                       PosEmb)
 
 _ARCH_MODULES: Dict[str, str] = {
+    "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "olmo-1b": "repro_torch.configs.olmo_1b",
 }

@@ -17,21 +17,23 @@
 //   * one block of one warpgroup (4 warps) per (64-row q tile, head, batch),
 //     each warp owning 16 query rows.  Two blocks fit on an SM (83 KB of
 //     shared memory at D = 128), so one block's softmax runs while the
-//     other's products do.  The q tiles launch in reverse order, so the
-//     causal tiles with the most KV tiles start first;
+//     other's products do; at D = 256 one block takes 161 KB and an SM
+//     holds one (blocks_per_sm).  The q tiles launch in reverse order, so
+//     the causal tiles with the most KV tiles start first;
 //   * Q is copied once into shared memory with cp.async; each KV tile
 //     reads it into registers again as the S product's A operand
 //     (ldmatrix.x4: the mma.sync A-fragment layout, which wgmma takes from
 //     registers), so no A fragment lives across tiles (see below).  K and
 //     V tiles of 64 rows go through a two-stage ring by cp.async.cg,
 //     zero-filled past T, in the swizzled layout that wgmma's
-//     shared-memory descriptors read (128-byte swizzle at D = 128, 64-byte
-//     below), so tile j+1 loads while tile j is computed;
+//     shared-memory descriptors read (128-byte swizzle at D = 128 and 256,
+//     64-byte below), so tile j+1 loads while tile j is computed;
 //   * S = Q K^T is wgmma m64n64k16 (K read K-major) and O += P V is wgmma
-//     m64nDk16 (V read N-major), bf16 in, fp32 accumulators in registers.  P
-//     never touches shared memory: the fp32 S accumulator packs pairwise into
-//     the A operand of the P V product (P rounds to bf16 there, where the
-//     plain version keeps it in fp32).  V's descriptor is the N-major
+//     m64nDk16 (V read N-major; m64n256k16 at D = 256, the widest wgmma),
+//     bf16 in, fp32 accumulators in registers.  P never touches shared
+//     memory: the fp32 S accumulator packs pairwise into the A operand of
+//     the P V product (P rounds to bf16 there, where the plain version
+//     keeps it in fp32).  V's descriptor is the N-major
 //     canonical layout: the leading byte offset steps between SW-byte
 //     column blocks along N, the stride byte offset between 8-key groups;
 //   * the online softmax runs in fp32 registers in log2 units (ex2, with
@@ -49,12 +51,18 @@
 // the plain version).  The descriptors were not at fault:
 // scripts/wgmma_probe.cu runs this P V product alone, with the kernel's
 // descriptors and swizzle, and it is exact.  Now only O, the products'
-// accumulator, lives across tiles in their registers.
+// accumulator, lives across tiles in their registers.  At D = 256 a thread
+// holds O (128 registers), Q's fragments (64) and S (32) at once, which
+// still fits the 255 a thread may have: ptxas (sm_90a) gives 252-254 and
+// no spills, so neither O += P V in two halves nor D split over two
+// warpgroups is needed.
 // fp32 inputs take flash_attention_simt, on CUDA cores in fp32: the
 // tensor cores would compute in TF32, which keeps about 3 digits,
 // and the fp32 path is held to 2e-5.  The model runs in bf16, so the main
-// path never reaches it.  Both kernels use the plain version's 64 x 64
-// tiles (kernels/flash_attention.py), so all three visit the same tiles.
+// path never reaches it.  Its fp32 Q, K, V and P tiles take 210 KB of
+// shared memory at D = 256, under the 227 KB a block may have.  Both
+// kernels use the plain version's 64 x 64 tiles
+// (kernels/flash_attention.py), so all three visit the same tiles.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -241,6 +249,13 @@ constexpr size_t wgmma_smem_bytes() {
          size_t(STAGES) * 2 * KvTile<D>::BYTES;
 }
 
+// Blocks an SM holds by shared memory (227 KB a block at most, 228 KB an
+// SM): two up to D = 128, one at D = 256 (Q 33 KB + the K/V ring 128 KB).
+template <int D>
+constexpr int blocks_per_sm() {
+  return 2 * (wgmma_smem_bytes<D>() + 1024) <= 233472 ? 2 : 1;
+}
+
 // One warpgroup per (64-row q tile, head, batch): Q's A fragments come from
 // shared memory at every KV tile; K (S = Q K^T, K-major) and V (O += P V,
 // N-major) are read by
@@ -248,7 +263,7 @@ constexpr size_t wgmma_smem_bytes() {
 // accumulators and A fragments are pinned (fence_regs), and the products
 // are waited for before their results are read.
 template <int D, bool SOFTCAP>
-__global__ void __launch_bounds__(WG_THREADS, 2)
+__global__ void __launch_bounds__(WG_THREADS, blocks_per_sm<D>())
 flash_attention_wgmma(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
@@ -585,6 +600,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
                            window, softcap, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
+                            causal, window, softcap, scale, st);
+    case 256:
+      return launch<T, 256>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
                             causal, window, softcap, scale, st);
     default:
       return int(cudaErrorInvalidValue);

@@ -20,14 +20,16 @@
 //     The wrapper's plan (kernels/paged_attention.py: split_plan) cuts the
 //     capacity maxp * ps into n_split ranges of `span` tokens from the shapes
 //     alone, never from lengths, so the host never waits on the card;
-//   * no shared-memory staging: a group of D * sizeof(T) / 16 lanes takes one
-//     token, a 16-byte slice of D a lane (16 lanes at D = 128 in bf16, so a
-//     warp scores two tokens at once); the dot product reduces by shuffles
-//     within the group.  Every lane group scores its tokens for the G query
-//     heads (in chunks of at most 8, whose q slices live in registers) and
-//     keeps its own online softmax (m, l) and fp32 accumulator slice in
-//     registers.  A lane issues the K and V loads of U tokens (4, or 2 when
-//     G > 2) before it uses the first: 2 * U 16-byte loads in flight;
+//   * no shared-memory staging: a group of D * sizeof(T) / 16 lanes, at most
+//     32, takes one token, a 16-byte slice of D a lane (16 lanes at D = 128
+//     in bf16, so a warp scores two tokens at once; a whole warp at D = 256,
+//     where an fp32 lane takes two slices 128 elements apart); the dot
+//     product reduces by shuffles within the group.  Every lane group
+//     scores its tokens for the G query heads (in chunks of at most 8,
+//     whose q slices live in registers) and keeps its own online softmax
+//     (m, l) and fp32 accumulator slice in registers.  A lane issues the K
+//     and V loads of U tokens (4, or 2 when G > 2) before it uses the
+//     first: 2 * U 16-byte loads in flight (twice that for fp32 at 256);
 //   * the lane groups of a warp merge by shuffles, the warps of a block once
 //     through shared memory;
 //   * combine in the same launch: with n_split > 1 each block writes its
@@ -88,8 +90,11 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        float* __restrict__ scratch, int* __restrict__ tickets,
                        int H, int KVH, int ps, int maxp, int span,
                        float scale, float softcap) {
-  constexpr int VEC = 16 / int(sizeof(T));  // elements a lane loads
-  constexpr int LPT = D / VEC;          // lanes a token
+  constexpr int VEC = 16 / int(sizeof(T));  // elements a 16-byte load
+  constexpr int LPT = D / VEC < 32 ? D / VEC : 32;   // lanes a token
+  constexpr int NV = D / (VEC * LPT);   // 16-byte loads a lane a row
+  constexpr int EL = NV * VEC;          // elements a lane holds; its load i
+                                        // is (i * LPT + sub) * VEC + [0, VEC)
   constexpr int TPW = 32 / LPT;         // tokens a warp scores at once
   constexpr int STEP = NW * TPW;        // tokens a block scores at once
   constexpr int U = GMAX >= 4 ? 2 : 4;  // tokens a lane group loads ahead
@@ -118,14 +123,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   float* p_ml = scratch + long(B) * KVH * n_split * G * D;
 
   for (int g0 = 0; g0 < G; g0 += GMAX) {
-    float qv[GMAX][VEC], acc[GMAX][VEC], m[GMAX], l[GMAX];
+    float qv[GMAX][EL], acc[GMAX][EL], m[GMAX], l[GMAX];
 #pragma unroll
     for (int g = 0; g < GMAX; ++g) {
       const bool ok = g0 + g < G;
       const T* qh = q + (long(b) * H + kvh * G + g0 + g) * D + sub * VEC;
 #pragma unroll
-      for (int u = 0; u < VEC; ++u) {
-        qv[g][u] = ok ? to_f32(qh[u]) * qk_scale : 0.f;
+      for (int u = 0; u < EL; ++u) {
+        qv[g][u] =
+            ok ? to_f32(qh[(u / VEC) * LPT * VEC + u % VEC]) * qk_scale : 0.f;
         acc[g][u] = 0.f;
       }
       m[g] = NEG_INF;
@@ -135,31 +141,37 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
     // the block's tokens: base tb + u * STEP + warp * TPW + grp.  The loop
     // bound is uniform over the block, so every lane meets every shuffle.
     for (int tb = t_begin; tb < t_end; tb += U * STEP) {
-      uint4 kr[U], vr[U];
+      uint4 kr[U][NV], vr[U][NV];
       bool ok[U];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
         const int t = tb + u * STEP + warp * TPW + grp;
         ok[u] = t < t_end;
-        if (ok[u]) {
-          const long off = long(__ldg(pt + t / ps)) * page_stride +
-                           long(t % ps) * row_stride + head_off;
-          kr[u] = __ldg(reinterpret_cast<const uint4*>(k_pages + off));
-          vr[u] = __ldg(reinterpret_cast<const uint4*>(v_pages + off));
-        } else {
-          kr[u] = vr[u] = make_uint4(0u, 0u, 0u, 0u);
+        const long off = ok[u] ? long(__ldg(pt + t / ps)) * page_stride +
+                                     long(t % ps) * row_stride + head_off
+                               : 0;
+#pragma unroll
+        for (int i = 0; i < NV; ++i) {
+          if (ok[u]) {
+            const long at = off + i * LPT * VEC;
+            kr[u][i] = __ldg(reinterpret_cast<const uint4*>(k_pages + at));
+            vr[u][i] = __ldg(reinterpret_cast<const uint4*>(v_pages + at));
+          } else {
+            kr[u][i] = vr[u][i] = make_uint4(0u, 0u, 0u, 0u);
+          }
         }
       }
       float sc[U][GMAX];
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float kf[VEC];
-        widen(kr[u], kf, k_pages);
+        float kf[EL];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) widen(kr[u][i], kf + i * VEC, k_pages);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           float s = 0.f;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) s = fmaf(qv[g][e], kf[e], s);
+          for (int e = 0; e < EL; ++e) s = fmaf(qv[g][e], kf[e], s);
 #pragma unroll
           for (int o = LPT / 2; o > 0; o >>= 1)
             s += __shfl_xor_sync(0xffffffffu, s, o);
@@ -176,18 +188,19 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         m[g] = mx;
         l[g] *= alpha;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] *= alpha;
+        for (int e = 0; e < EL; ++e) acc[g][e] *= alpha;
       }
 #pragma unroll
       for (int u = 0; u < U; ++u) {
-        float vf[VEC];
-        widen(vr[u], vf, v_pages);
+        float vf[EL];
+#pragma unroll
+        for (int i = 0; i < NV; ++i) widen(vr[u][i], vf + i * VEC, v_pages);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           const float p = ok[u] ? exp2f(sc[u][g] - m[g]) : 0.f;
           l[g] += p;
 #pragma unroll
-          for (int e = 0; e < VEC; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
+          for (int e = 0; e < EL; ++e) acc[g][e] = fmaf(p, vf[e], acc[g][e]);
         }
       }
     }
@@ -204,7 +217,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
         m[g] = mx;
         l[g] = l[g] * a + l_o * c;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
+        for (int e = 0; e < EL; ++e)
           acc[g][e] = acc[g][e] * a +
                       __shfl_xor_sync(0xffffffffu, acc[g][e], o) * c;
       }
@@ -213,8 +226,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
-        for (int e = 0; e < VEC; ++e)
-          sm_acc[(warp * GMAX + g) * D + sub * VEC + e] = acc[g][e];
+        for (int e = 0; e < EL; ++e)
+          sm_acc[(warp * GMAX + g) * D + ((e / VEC) * LPT + sub) * VEC +
+                 e % VEC] = acc[g][e];
         if (sub == 0) {
           sm_m[warp * GMAX + g] = m[g];
           sm_l[warp * GMAX + g] = l[g];
@@ -345,6 +359,10 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
                              n_split, span, scale, softcap, st);
     case 128:
       return launch_g<T, 128>(G, q, k_pages, v_pages, page_tables, lengths,
+                              out, scratch, tickets, B, H, KVH, ps, maxp,
+                              n_split, span, scale, softcap, st);
+    case 256:
+      return launch_g<T, 256>(G, q, k_pages, v_pages, page_tables, lengths,
                               out, scratch, tickets, B, H, KVH, ps, maxp,
                               n_split, span, scale, softcap, st);
     default:

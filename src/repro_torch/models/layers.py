@@ -241,15 +241,18 @@ def paged_decode_attention(q, k_cache, v_cache, *, scale: float, lengths,
 # --------------------------------------------------------------------------
 
 
-def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int, *, device,
-                  lead=()) -> Dict:
+def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int,
+                  window: int = 0, *, device, lead=()) -> Dict:
+    """One attention layer's cache.  window > 0 -> a ring buffer of
+    ``min(max_len, window)`` slots, as the JAX twin makes."""
     if cfg.kv_cache_dtype == "int8":
         raise NotImplementedError(
             "int8 KV caches are not ported yet (ROADMAP queue 1 item 6)")
+    T = min(max_len, window) if window > 0 else max_len
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
     dtype = torch.bfloat16 if cfg.kv_cache_dtype == "bfloat16" \
         else torch.float32
-    shape = (*lead, batch, max_len, kvh, hd)
+    shape = (*lead, batch, T, kvh, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
@@ -324,21 +327,37 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
                      window: int = 0, cache: Dict, cos=None, sin=None,
                      attn_impl: str = "kernel"):
     """One-token decode.  x: [B, 1, d_model]; lengths: [B] BEFORE this token.
-    Returns (out, cache) with the cache updated in place."""
-    if window > 0:
-        raise NotImplementedError(
-            "sliding-window decode is not ported yet (ROADMAP queue 1 "
-            "item 6)")
+    Returns (out, cache) with the cache updated in place.
+
+    A windowed layer's ring cache (T <= window slots, slot = position % T)
+    holds only positions inside the window, so it is attended unwindowed
+    over its ``min(lengths + 1, T)`` filled slots, as in the JAX twin; on
+    the kernel path that is the paged kernel.  A windowed cache longer
+    than its window needs the window's mask, which only the plain
+    ``decode_attention`` has: the kernel path refuses it, before it
+    touches the cache."""
+    T = cache["k"].shape[1]
+    ring = window > 0 and T <= window
+    if window > 0 and not ring and attn_impl != "plain":
+        raise ValueError(
+            f"attention_decode: a cache of {T} slots under a window of "
+            f"{window} needs a windowed decode, and the paged kernel, like "
+            f"the Pallas one, has no window.  The port's own caches are "
+            f"rings of at most `window` slots (stack_cache_init), which "
+            f"never reach this branch; use attn_impl='plain' for others")
     if cos is None and cfg.pos_emb == PosEmb.ROPE:
         cos, sin = rope_cos_sin(lengths[:, None], cfg.head_dim,
                                 cfg.rope_theta)
     q, k, v = _qkv(cfg, p, x, cos, sin)
     kv_write_decode(cache, k, v, lengths)
     kd, vd = kv_read(cache)
-    kw = dict(scale=_attn_scale(cfg), lengths=lengths + 1,
+    lens = lengths + 1
+    if ring:                        # every filled slot is inside the window
+        lens, window = torch.clamp(lens, max=T), 0
+    kw = dict(scale=_attn_scale(cfg), lengths=lens,
               softcap=cfg.attn_logit_softcap)
     if attn_impl == "plain":
-        out = decode_attention(q, kd, vd, **kw)
+        out = decode_attention(q, kd, vd, window=window, **kw)
     else:
         out = paged_decode_attention(q, kd, vd, **kw)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache

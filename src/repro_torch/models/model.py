@@ -11,11 +11,12 @@ Mamba-2.
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
-The slices cover the dense decoder olmo-1b needs and the attention-free
-Mamba-2 stack of mamba2-780m.  A config that uses a feature outside them
-is refused when the ``Model`` is built, naming the
-ROADMAP item that brings it, so nothing outside the slice is computed
-silently wrong.
+The slices cover the dense decoder olmo-1b needs, the attention-free
+Mamba-2 stack of mamba2-780m, and gemma2-2b's attention variants: sliding
+windows with ring-buffer caches, local/global alternation, logit softcaps,
+post-norms and scaled embeddings.  A config that uses a feature outside
+them is refused when the ``Model`` is built, naming the ROADMAP item that
+brings it, so nothing outside the slices is computed silently wrong.
 """
 from __future__ import annotations
 
@@ -48,10 +49,6 @@ def _unported(cfg: ModelConfig) -> str:
         return "VLM embeds and non-RoPE positions (item 6)"
     if cfg.kv_cache_dtype == "int8":
         return "int8 KV caches (item 6)"
-    if cfg.sliding_window or cfg.local_global_alternating:
-        return "sliding-window attention (item 6)"
-    if cfg.use_post_norm:
-        return "post-norm (item 6)"
     return ""
 
 

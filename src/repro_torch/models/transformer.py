@@ -1,4 +1,5 @@
-"""Decoder stack for the dense decoder-only and attention-free SSM families.
+"""Decoder stack for the dense decoder-only and attention-free SSM families
+(with gemma2's local/global alternation, ring caches and post-norms).
 
 The stack is described by a repeating **block pattern** (``block_pattern``
 is copied from the JAX package, so both sides name the same blocks).  As
@@ -79,6 +80,10 @@ def _block_init(cfg: ModelConfig, desc: BlockDesc, gen, R: int,
     if desc.ffn != "none":
         p["norm_ffn"] = L.norm_init(cfg, cfg.d_model, **kw)
         p["mlp"] = L.mlp_params(cfg, gen, **kw)
+    if cfg.use_post_norm:
+        p["post_norm_mixer"] = L.norm_init(cfg, cfg.d_model, **kw)
+        if desc.ffn != "none":
+            p["post_norm_ffn"] = L.norm_init(cfg, cfg.d_model, **kw)
     return p
 
 
@@ -91,9 +96,11 @@ def stack_init(cfg: ModelConfig, gen, *, device) -> List[Dict]:
 
 def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
                      device) -> List[Dict]:
+    """One stacked cache per pattern position; a windowed position's is a
+    ring of ``min(max_len, window)`` slots."""
     kw = dict(device=device, lead=(num_repeats(cfg),))
     return [M.mamba_cache_init(cfg, batch, **kw) if desc.mixer == "mamba"
-            else L.kv_cache_init(cfg, batch, max_len, **kw)
+            else L.kv_cache_init(cfg, batch, max_len, desc.window, **kw)
             for desc in block_pattern(cfg)]
 
 
@@ -120,11 +127,16 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
                                      causal=True, window=desc.window,
                                      cache=cache, cos=cos, sin=sin,
                                      attn_impl=attn_impl)
+    if cfg.use_post_norm:
+        mix = L.apply_norm(cfg, p["post_norm_mixer"], mix)
     x = x + mix
     if desc.ffn == "none":
         return x
     h = L.apply_norm(cfg, p["norm_ffn"], x)
-    return x + L.apply_mlp(cfg, p["mlp"], h)
+    y = L.apply_mlp(cfg, p["mlp"], h)
+    if cfg.use_post_norm:
+        y = L.apply_norm(cfg, p["post_norm_ffn"], y)
+    return x + y
 
 
 def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,

@@ -10,6 +10,13 @@ also runs on a machine that has only PyTorch; from the repository root:
 Tolerances follow ``tests/test_kernels.py::tol_for``: 2e-5 in fp32 (the
 same fp32 arithmetic in another summation order) and 2e-2 in bf16 (both
 sides round the fp32 result to bf16, so they may differ by a bf16 step).
+At gemma2-2b's head_dim 256 the error is also held to 1e-2 (bf16) or
+2e-5 (fp32) of the output's norm, since outputs averaged over thousands
+of keys are about as small as the 2e-2 bound; and cases whose q is scaled
+(bf16 by 30, scores of std ~30 past the softcap of 50; fp32 by 4, as
+far as fp32's own rounding of the scores stays inside 2e-5) make the plain
+version without the cap differ by ten tolerances or more, so a kernel that
+dropped the cap could not pass.
 The SSD scan takes 1e-3 in fp32, as ``tests/test_kernels.py`` does for
 it: its prefix sums and chunk products are summed in another order.
 """
@@ -48,6 +55,28 @@ def on(dev, x, dtype):
 
 def close(got, want, **tol):
     torch.testing.assert_close(got.float().cpu(), want.float().cpu(), **tol)
+
+
+REL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+CAP_BOOST = {"float32": 4.0, "bfloat16": 30.0}
+
+
+def rel_err(got, want):
+    want = want.float()
+    return float((got.float() - want).norm() / want.norm())
+
+
+def rel_close(got, want, dtype_name):
+    """||got - want|| within REL_TOL of ||want||."""
+    assert rel_err(got, want) < REL_TOL[dtype_name], rel_err(got, want)
+
+
+def assert_cap_binds(want, uncapped, dtype_name):
+    """The plain output with the softcap and without it differ by ten
+    tolerances or more, elementwise and in norm."""
+    assert rel_err(uncapped, want) > 10 * REL_TOL[dtype_name]
+    assert float((uncapped.float() - want.float()).abs().max()) > \
+        10 * tol_for(dtype_name)["atol"]
 
 
 @pytest.mark.cuda
@@ -108,6 +137,82 @@ def test_flash_attention_tensor_cores_at_model_width(cuda, D, S, mask):
     torch.cuda.synchronize()
     close(got, FA.flash_attention_plain(q, k, v, scale=D ** -0.5, **kw),
           **tol_for("bfloat16"))
+
+
+# gemma2-2b's attention: head_dim 256, 8 query heads over 4 KV heads
+D256_MASKS = {"causal": {}, "window": dict(window=40),
+              "softcap": dict(softcap=50.0),
+              "window-softcap": dict(window=40, softcap=50.0),
+              "noncausal": dict(causal=False),
+              "noncausal-softcap": dict(causal=False, softcap=50.0),
+              "kv_len": dict(causal=False, kv_len=2 / 3)}   # of the keys
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(D256_MASKS))
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(cuda, S, mask, dtype):
+    """Both kernels at head_dim 256 (bf16: the m64n256k16 P V product over
+    four 128-byte swizzled column blocks; fp32: 210 KB of shared memory),
+    at the 64-row tile edges, under every mask, with G = 2."""
+    kw = dict(D256_MASKS[mask])
+    if "kv_len" in kw:
+        kw["kv_len"] = max(1, int(S * kw["kv_len"]))
+    rng = np.random.default_rng(S + 256)
+    q = on(cuda, rng.standard_normal((2, S, 8, 256)), DTYPES[dtype])
+    k = on(cuda, rng.standard_normal((2, S, 4, 256)), DTYPES[dtype])
+    v = on(cuda, rng.standard_normal((2, S, 4, 256)), DTYPES[dtype])
+    before = FA.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, scale=256 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = FA.flash_attention_plain(q, k, v, scale=256 ** -0.5, **kw)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,window,dtype", [
+    (65, 0, "float32"), (65, 40, "float32"), (129, 0, "float32"),
+    (65, 0, "bfloat16"), (65, 40, "bfloat16"), (129, 0, "bfloat16"),
+    (129, 40, "bfloat16"), (300, 0, "bfloat16"), (300, 40, "bfloat16"),
+    (4400, 0, "bfloat16"), (4400, 4096, "bfloat16"),   # gemma2's prefill
+])
+def test_flash_attention_head_dim_256_softcap_binds(cuda, S, window, dtype):
+    """q scaled by CAP_BOOST: the scores pass the softcap of 50, so the cap
+    changes the output by far more than the tolerance, and the kernel
+    still matches the plain version."""
+    rng = np.random.default_rng(S + window)
+    q = on(cuda, rng.standard_normal((1, S, 8, 256)) * CAP_BOOST[dtype],
+           DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 4, 256)), DTYPES[dtype])
+            for _ in range(2))
+    kw = dict(scale=256 ** -0.5, window=window)
+    want = FA.flash_attention_plain(q, k, v, softcap=50.0, **kw)
+    assert_cap_binds(want, FA.flash_attention_plain(q, k, v, **kw), dtype)
+    got = ops.flash_attention(q, k, v, softcap=50.0, **kw)
+    torch.cuda.synchronize()
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 4096])
+def test_flash_attention_gemma2_prefill(cuda, window):
+    """gemma2-2b's prefill at 4400 tokens, past its 4096 window: a global
+    (causal) and a local (window 4096) layer, softcap 50, bf16."""
+    rng = np.random.default_rng(window)
+    q = on(cuda, rng.standard_normal((1, 4400, 8, 256)), torch.bfloat16)
+    k, v = (on(cuda, rng.standard_normal((1, 4400, 4, 256)), torch.bfloat16)
+            for _ in range(2))
+    kw = dict(scale=256 ** -0.5, window=window, softcap=50.0)
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    close(got, want, **tol_for("bfloat16"))
+    rel_close(got, want, "bfloat16")
 
 
 @pytest.mark.cuda
@@ -171,6 +276,59 @@ def test_paged_attention_split_edges(cuda, B, H, KVH, D, ps, maxp, lengths,
     torch.cuda.synchronize()
     close(got, PA.paged_attention_plain(*args, scale=D ** -0.5),
           **tol_for(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,ps,maxp,lengths", [
+    (4, 8, 4, 64, 64, [4096, 5000, 1, 4095]),   # gemma2's 4096-slot ring:
+                                                # lengths at and past T
+    (4, 8, 4, 64, 70, [4432, 700, 586, 369]),   # its 4480-slot global cache
+    (1, 2, 1, 16, 60, [40]),                    # 30 splits over 2 chunks
+    (66, 8, 4, 16, 4,                           # B * KVH = 264: one split
+     [1 + (i * 13) % 64 for i in range(66)]),
+    (2, 16, 2, 16, 4, [50, 7]),                 # G = 8
+    (2, 24, 2, 16, 4, [64, 3]),                 # G = 12: chunks of 8
+])
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_256(cuda, B, H, KVH, ps, maxp, lengths,
+                                      softcap, dtype):
+    """head_dim 256: a token's row takes a whole warp (an fp32 lane two
+    16-byte slices), at gemma2's shapes and the split plan's edges."""
+    args = paged_inputs(cuda, np.random.default_rng(B + H + maxp), B, H,
+                        KVH, 256, ps, maxp, lengths, DTYPES[dtype])
+    before = PA.paged_attention_cuda.launches
+    got = ops.paged_attention(*args, scale=256 ** -0.5, softcap=softcap)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_cuda.launches == before + 1
+    want = PA.paged_attention_plain(*args, scale=256 ** -0.5,
+                                    softcap=softcap)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,ps,maxp,lengths", [
+    (4, 8, 4, 64, 64, [4096, 5000, 1, 4095]),   # gemma2's 4096-slot ring
+    (4, 8, 4, 64, 70, [4432, 700, 586, 369]),   # its 4480-slot global cache
+    (2, 16, 2, 16, 4, [50, 7]),                 # G = 8
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_256_softcap_binds(cuda, B, H, KVH, ps,
+                                                    maxp, lengths, dtype):
+    """q scaled by CAP_BOOST: the scores pass the softcap of 50, so the cap
+    changes the output by far more than the tolerance, and the kernel
+    still matches the plain version."""
+    q, *rest = paged_inputs(cuda, np.random.default_rng(B + H + maxp), B,
+                            H, KVH, 256, ps, maxp, lengths, DTYPES[dtype])
+    args = ((q.float() * CAP_BOOST[dtype]).to(q.dtype), *rest)
+    want = PA.paged_attention_plain(*args, scale=256 ** -0.5, softcap=50.0)
+    assert_cap_binds(want, PA.paged_attention_plain(*args, scale=256 ** -0.5),
+                     dtype)
+    got = ops.paged_attention(*args, scale=256 ** -0.5, softcap=50.0)
+    torch.cuda.synchronize()
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -245,6 +403,82 @@ def test_reduced_model_kernel_path_matches_plain_path(cuda):
         8 * cfg.num_layers
     assert np.median(errs) < 0.05, errs
     assert math.isfinite(sum(errs))
+
+
+@pytest.mark.cuda
+def test_reduced_gemma2_kernel_path_matches_plain_path(cuda):
+    """gemma2-2b at smoke width on the card (window 16, softcaps,
+    post-norms): a 32-token prefill, which wraps the local layers' 16-slot
+    ring, then 16 decode steps through the kernels, against the plain
+    path's teacher-forced forward under the bounds of
+    tests/test_models_decode.py."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("gemma2-2b").reduced()
+    check_gemma2_kernel_path(cuda, cfg, build_model(cfg).init(0, device=cuda))
+
+
+@pytest.mark.cuda
+def test_reduced_gemma2_kernel_path_with_a_binding_softcap(cuda):
+    """The same with every query projection scaled by 100, so the
+    attention scores (std ~100) pass the logit softcap of 50: the kernel
+    path still matches the plain path, and its logits lie five times
+    closer (mean absolute difference) to the plain path's than the plain
+    path without the cap does."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("gemma2-2b").reduced()
+    params = build_model(cfg).init(0, device=cuda)
+    for block in params["blocks"]:
+        block["attn"]["wq"] = block["attn"]["wq"] * 100
+    got, ref = check_gemma2_kernel_path(cuda, cfg, params)
+    uncapped = build_model(dataclasses.replace(cfg, attn_logit_softcap=0.0),
+                           attn_impl="plain")
+    with torch.inference_mode():
+        x, _ = uncapped.forward(params, {"tokens": gemma2_tokens(cuda, cfg)})
+        moved = (uncapped._logits(params, x)[:, 31:].float() - ref).abs()
+    assert 5 * float((got - ref).abs().mean()) < float(moved.mean())
+
+
+def gemma2_tokens(cuda, cfg):
+    """The 48 tokens both reduced-gemma2 tests feed the model."""
+    return torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (2, 48))).to(cuda)
+
+
+def check_gemma2_kernel_path(cuda, cfg, params):
+    """A 32-token prefill and 16 decode steps on the kernel path against
+    the plain path's teacher-forced forward; returns both paths' logits
+    at the 17 positions compared, as fp32 [2, 17, V]."""
+    from repro_torch.models import build_model
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    toks = gemma2_tokens(cuda, cfg)
+    with torch.inference_mode():
+        x, _ = plain.forward(params, {"tokens": toks})
+        ref = plain._logits(params, x)
+    cache = kernel.init_cache(2, 48, device=cuda)
+    assert [c["k"].shape[2] for c in cache] == [16, 48]
+    before = ops.launch_counts()
+    lg, cache, _ = kernel.prefill(params, {"tokens": toks[:, :32]}, cache)
+    got = [lg]
+    for t in range(32, 48):
+        lg, cache = kernel.decode(params, toks[:, t], cache,
+                                  torch.full((2,), t, dtype=torch.int32,
+                                             device=cuda))
+        got.append(lg)
+    after = ops.launch_counts()
+    assert after["flash_attention"] - before["flash_attention"] == \
+        cfg.num_layers
+    assert after["paged_attention"] - before["paged_attention"] == \
+        16 * cfg.num_layers
+    got, ref = torch.stack(got, 1).float(), ref[:, 31:].float()
+    errs = [float((got[:, i].softmax(-1) - ref[:, i].softmax(-1))
+                  .abs().max()) for i in range(got.shape[1])]
+    assert np.median(errs) < 0.05, errs
+    assert math.isfinite(sum(errs))
+    return got, ref
 
 
 def ssd_tol(dtype_name):

@@ -1,8 +1,10 @@
 """The port's RealEngine: every mode serves the same tokens as a sequential
 greedy run of the port's own model, and that run agrees with the JAX
-package's ``tests/test_engine.py::reference_outputs``.  Both of the port's
-models are served: olmo-1b (KV caches) and mamba2-780m (conv and SSM
-state caches, the SSD scan's plain version on the CPU), at smoke width.
+package's ``tests/test_engine.py::reference_outputs``.  All three of the
+port's models are served at smoke width: olmo-1b (KV caches), mamba2-780m
+(conv and SSM state caches, the SSD scan's plain version on the CPU) and
+gemma2-2b (a 16-slot ring cache on its local layers beside its global
+layers' full cache, softcaps and post-norms).
 
 Engine against the port's reference: token for token (the engine runs the
 same eager torch model, so nothing may differ).  Port against JAX:
@@ -51,8 +53,16 @@ def mamba_setup():
     return _setup("mamba2-780m")
 
 
+@pytest.fixture(scope="module")
+def gemma_setup():
+    return _setup("gemma2-2b")
+
+
 # mamba2's prompts span two scan chunks of 32 (the second one ragged)
 MAMBA_PROMPT = 40
+# gemma2's prompts: the first past its 16-token window (the local layers'
+# ring wraps in the prefill), the others wrap it while decoding 8 tokens
+GEMMA_PROMPTS = (24, 10, 12, 9, 14, 11)
 
 
 def mk_requests(cfg, n=6, prompt=12, out=8, gap=0.01):
@@ -62,6 +72,15 @@ def mk_requests(cfg, n=6, prompt=12, out=8, gap=0.01):
                         0, cfg.vocab_size, prompt).tolist(),
                     arrival_time=s * gap)
             for s in range(n)]
+
+
+def gemma_requests(cfg, out=8, gap=0.01):
+    """mk_requests with GEMMA_PROMPTS' lengths."""
+    return [Request(prompt_len=n, max_new_tokens=out,
+                    prompt_tokens=np.random.default_rng(s).integers(
+                        0, cfg.vocab_size, n).tolist(),
+                    arrival_time=s * gap)
+            for s, n in enumerate(GEMMA_PROMPTS)]
 
 
 def reference_outputs(model, params, reqs, max_len=MAX_LEN):
@@ -93,6 +112,12 @@ def mamba_reference(mamba_setup):
     cfg, model, params, _, _ = mamba_setup
     return reference_outputs(model, params,
                              mk_requests(cfg, prompt=MAMBA_PROMPT))
+
+
+@pytest.fixture(scope="module")
+def gemma_reference(gemma_setup):
+    cfg, model, params, _, _ = gemma_setup
+    return reference_outputs(model, params, gemma_requests(cfg))
 
 
 def run_engine(setup, reqs, **kw):
@@ -221,3 +246,27 @@ def test_mamba2_engine_matches_reference(mamba_setup, mamba_reference, mode):
 def test_mamba2_reference_agrees_with_jax(mamba_setup, mamba_reference):
     _agrees_with_jax(mamba_setup, mamba_reference,
                      mk_requests(mamba_setup[0], prompt=MAMBA_PROMPT))
+
+
+@pytest.mark.parametrize("mode", ["passthrough", "static_colocate",
+                                  "dynamic_pd", "disagg"])
+def test_gemma2_engine_matches_reference(gemma_setup, gemma_reference,
+                                         mode):
+    """Reduced gemma2 served in every mode: slot inserts and the disagg
+    transfer carry each sequence's ring cache (16 slots, ring-aligned)
+    beside its global cache, one prompt already past the window."""
+    cfg = gemma_setup[0]
+    reqs = gemma_requests(cfg)
+    eng, res = run_engine(gemma_setup, reqs, mode=mode)
+    assert res["completed"] == len(reqs) and res["failed"] == 0
+    assert [r.output_tokens for r in reqs] == gemma_reference
+    assert [c["k"].shape[2] for c in eng.replicas[0].slot_cache] == \
+        [16, MAX_LEN]
+    if mode != "passthrough":
+        for dev in eng.session.stats().values():
+            assert dev["buffers"] == 0 and dev["allocated_bytes"] == 0
+
+
+def test_gemma2_reference_agrees_with_jax(gemma_setup, gemma_reference):
+    _agrees_with_jax(gemma_setup, gemma_reference,
+                     gemma_requests(gemma_setup[0]))

@@ -52,6 +52,23 @@ def close(got, want, **tol):
                                np.asarray(want, np.float32), **tol)
 
 
+# q's scale in the softcap cases: bf16 scores of std ~30 pass the cap of 50
+# by far; fp32 ones of std ~4 move the output by ten of fp32's tolerances
+# (at std ~30 the fp32 scores' own rounding, about 1e-4 of 50, would pass
+# 2e-5)
+CAP_BOOST = {"float32": 4.0, "bfloat16": 30.0}
+
+
+def assert_cap_binds(capped, uncapped, dtype_name):
+    """The plain version with the softcap and without it differ by ten
+    tolerances or more, elementwise and in norm (1e-2 of the norm in bf16,
+    2e-5 in fp32, as ``tests/test_torch_cuda.py`` holds the kernels)."""
+    c, u = capped.float(), uncapped.float()
+    rel = {"float32": 2e-5, "bfloat16": 1e-2}[dtype_name]
+    assert float((u - c).norm() / c.norm()) > 10 * rel
+    assert float((u - c).abs().max()) > 10 * tol_for(dtype_name)["atol"]
+
+
 # ---------------------------------------------------------------- paged
 def paged_case(rng, B, H, KVH, D, ps, maxp, *, dtype="float32", lengths=None,
                scale_q=1.0, permute=True):
@@ -101,6 +118,44 @@ def test_paged_attention_softcap():
         close(got, pallas, rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("softcap", [0.0, 50.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_256(softcap, dtype):
+    """gemma2-2b's decode heads: head_dim 256, G = 2, its softcap 50."""
+    args = paged_case(np.random.default_rng(256), 3, 8, 4, 256, 16, 4,
+                      dtype=dtype, lengths=[64, 17, 1], scale_q=3.0)
+    jargs, targs = [a[0] for a in args], [a[1] for a in args]
+    kw = dict(scale=256 ** -0.5, softcap=softcap)
+    want = JR.ref_paged_attention(*jargs, **kw)
+    pallas = jax_paged(*jargs, interpret=True, **kw)
+    for got in (PA.paged_attention_plain(*targs, **kw),
+                TR.ref_paged_attention(*targs, **kw)):
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (3, 8, 256)
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_256_softcap_binds(dtype):
+    """q scaled by CAP_BOOST: the scores pass gemma2-2b's softcap of 50,
+    so the cap moves the output far past the tolerance; with it, the plain
+    version and ref.py match the JAX oracle and the Pallas kernel."""
+    args = paged_case(np.random.default_rng(257), 3, 8, 4, 256, 16, 4,
+                      dtype=dtype, lengths=[64, 17, 9],
+                      scale_q=CAP_BOOST[dtype])
+    jargs, targs = [a[0] for a in args], [a[1] for a in args]
+    kw = dict(scale=256 ** -0.5, softcap=50.0)
+    want = JR.ref_paged_attention(*jargs, **kw)
+    pallas = jax_paged(*jargs, interpret=True, **kw)
+    plain = PA.paged_attention_plain(*targs, **kw)
+    assert_cap_binds(plain, PA.paged_attention_plain(*targs,
+                                                     scale=kw["scale"]),
+                     dtype)
+    for got in (plain, TR.ref_paged_attention(*targs, **kw)):
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
+
+
 # ---------------------------------------------------------------- flash
 def flash_case(rng, B, S, H, KVH, D, dtype="float32", T=None):
     T = T or S
@@ -142,6 +197,52 @@ def test_flash_attention_variants(window, softcap, causal):
                 TR.ref_flash_attention(qt, kt, vt, **kw)):
         close(got, want, rtol=2e-5, atol=2e-5)
         close(got, pallas, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("window,softcap,causal", [
+    (0, 0.0, True), (24, 0.0, True), (0, 50.0, True), (24, 50.0, True),
+    (0, 50.0, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256(window, softcap, causal, dtype):
+    """gemma2-2b's prefill heads: head_dim 256, G = 2, its softcap 50 and a
+    window (24 here) that binds inside the 70-token prompt."""
+    args = flash_case(np.random.default_rng(window + int(softcap)), 1, 70,
+                      8, 4, 256, dtype)
+    (qj, kj, vj), (qt, kt, vt) = zip(*args)
+    kw = dict(scale=256 ** -0.5, causal=causal, window=window,
+              softcap=softcap)
+    want = JR.ref_flash_attention(qj, kj, vj, **kw)
+    pallas = jax_flash(qj, kj, vj, block_q=32, block_kv=32, interpret=True,
+                       **kw)
+    for got in (FA.flash_attention_plain(qt, kt, vt, **kw),
+                TR.ref_flash_attention(qt, kt, vt, **kw)):
+        assert got.dtype == DTYPES[dtype][1] and got.shape == qt.shape
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
+
+
+@pytest.mark.parametrize("window", [0, 24])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_256_softcap_binds(window, dtype):
+    """q scaled by CAP_BOOST: the scores pass gemma2-2b's softcap of 50,
+    so the cap moves the output far past the tolerance; with it, the plain
+    version and ref.py match the JAX oracle and the Pallas kernel."""
+    rng = np.random.default_rng(270 + window)
+    (qj, qt), (kj, kt), (vj, vt) = (
+        both(rng.standard_normal(shape) * boost, dtype)
+        for shape, boost in (((1, 70, 8, 256), CAP_BOOST[dtype]),
+                             ((1, 70, 4, 256), 1.0),
+                             ((1, 70, 4, 256), 1.0)))
+    kw = dict(scale=256 ** -0.5, causal=True, window=window, softcap=50.0)
+    want = JR.ref_flash_attention(qj, kj, vj, **kw)
+    pallas = jax_flash(qj, kj, vj, block_q=32, block_kv=32, interpret=True,
+                       **kw)
+    plain = FA.flash_attention_plain(qt, kt, vt, **kw)
+    assert_cap_binds(plain, FA.flash_attention_plain(
+        qt, kt, vt, **dict(kw, softcap=0.0)), dtype)
+    for got in (plain, TR.ref_flash_attention(qt, kt, vt, **kw)):
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
 
 
 @pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129])
