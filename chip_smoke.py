@@ -16,29 +16,44 @@ fallback):
             and one PyTorch library call where one computes the same
             function, beside the card's bound, and the kernel's and the
             call's device time alone and the wrapper's host time.
-            A model with a sliding window (gemma2-2b) gets cases and
-            times at its own heads, window and logit softcap, with scores
-            scaled past the cap so a kernel that dropped it would fail; its
-            library call is flex_attention with the softcap as score_mod
-            (SDPA without the softcap is timed beside, a different
-            function).
-Then for each model, olmo-1b, mamba2-780m and gemma2-2b, at full published
-width (random weights from --seed):
+            Every attention model after the first gets cases and times at
+            its own heads, windows and logit softcap (gemma2-2b, G = 2 at
+            head_dim 256; starcoder2-3b, G = 12 under a window on every
+            layer; qwen2-vl-2b, G = 6; the reduced nemotron-4-340b, head_dim
+            32), with scores scaled past a softcap so a kernel that dropped
+            it would fail.  The library calls are SDPA (a window as a
+            boolean mask) and, under a window or a softcap, flex_attention
+            (the window as a block mask, the cap as score_mod), each held
+            against the plain version first; the fastest is the library
+            call, the others stand beside it (SDPA without a softcap is
+            timed apart under one: a different function).
+Then for each model, olmo-1b, mamba2-780m, gemma2-2b, starcoder2-3b and
+qwen2-vl-2b at full published width, and nemotron-4-340b at its reduced()
+width (int8 KV caches kept; the full model does not fit one card), random
+weights from --seed:
 4. model    a prefill plus 16 decode steps on the kernel path against the
             plain path, teacher-forced (a windowed model: a prompt 64
             tokens past its window; under a logit softcap, again with the
-            query projections scaled by 100 so that the cap binds); then a
-            prefill of the longest prompt and one decode step at the
-            engine's shape, each timed and traced with torch.profiler
-            (device busy share, launches, costliest kernels).
+            query projections scaled by 100 so that the cap binds; a VLM,
+            again fed embeds with M-RoPE positions whose rows differ, which
+            must move the logits; an int8 KV cache, also on starcoder2-3b
+            and qwen2-vl-2b at full width: int8 values, scales not zero,
+            logits apart from the same model's with bf16 caches but within
+            the gate); then a prefill of the longest prompt and one decode
+            step at the engine's shape, each timed and traced with
+            torch.profiler (device busy share, launches, costliest
+            kernels), the decode step again with int8 caches where the
+            int8 check ran at full width.
 5. engine   RealEngine in passthrough, static_colocate, dynamic_pd and
             disagg: 8 requests, prompts of 128-1024 tokens (a windowed
             model's first one lengthened to 304 tokens past its window:
-            4400 for gemma2-2b, so its local layers' 4096-slot ring
-            wraps), 32 new tokens each, arriving as a burst.  Every
-            request must complete, with the same tokens in every mode, and
-            the launch counters (reset just before each mode) must show the
-            engine ran through the model's kernels, every SSD scan on the
+            4400 tokens at a 4096 window, so its 4096-slot rings wrap),
+            32 new tokens each, arriving as a burst.  Every request must
+            complete, with the same tokens in every mode, and the launch
+            counters (reset just before each mode) must show the engine ran
+            through the model's kernels: every attention layer's flash
+            launch under its window and paged launch over its own cache's
+            capacity, as the wrappers count them, every SSD scan on the
             tensor cores.
 6. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
@@ -46,6 +61,7 @@ width (random weights from --seed):
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import math
 import os
@@ -79,12 +95,21 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 # (at std ~30 the fp32 scores' own rounding would pass 2e-5)
 CAP_BOOST = {torch.bfloat16: 30.0, torch.float32: 4.0}
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
-ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b")
+ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b", "starcoder2-3b",
+         "qwen2-vl-2b", "nemotron-4-340b")
+# served at reduced() width: nemotron-4-340b (int8 KV caches) is far too
+# large for one card, and its head_dim of 192 is in neither kernel
+REDUCED = ("nemotron-4-340b",)
+# full-width models whose int8 KV cache is also run in the model phase
+# (checked against bf16 caches, and its decode step traced): head_dim 128,
+# starcoder2-3b's 4096-slot rings and qwen2-vl-2b's slot caches
+INT8_AT_WIDTH = ("starcoder2-3b", "qwen2-vl-2b")
 # a windowed model's traffic lengthens its first prompt to window + 304
 # tokens (4400 at gemma2-2b's 4096), and its model phase's prompt is
 # window + 64 tokens: both past the window, so the ring caches wrap
 PAST_WINDOW = 304
 CHECK_PAST_WINDOW = 64
+IMAGE_GRID = 16               # the M-RoPE check's 16 x 16 patch grid
 MAX_NUM_SEQS = 4
 N_REQUESTS = 8
 MAX_NEW = 32
@@ -92,6 +117,8 @@ MODEL_DECODE_STEPS = 16
 TIE_EPS = 0.02                # tests/test_models_decode.py::agree_step
 SSM_DECODE_EXACT = 5e-3       # tests/test_models_decode.py, mamba2
 MODES = ("passthrough", "static_colocate", "dynamic_pd", "disagg")
+# the PyTorch calls that may compute a kernel's function (kernel_times)
+LIBRARY_CALLS = ("sdpa", "flex_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -172,23 +199,33 @@ def time_held(fn, iters: int, warmup: int = 2):
 
 
 def kernel_times(kernel, plain, library, iters: int = 50):
-    """The kernels line's times for one kernel: ``ms``, ``plain_ms`` and
-    ``library_ms`` by ``time_ms``; beside them the kernel's and the library
-    call's device time and the kernel wrapper's host time per call, by
-    ``time_held``."""
+    """The kernels line's times for one kernel: ``ms`` and ``plain_ms`` by
+    ``time_ms``, and the kernel's device time and its wrapper's host time
+    per call by ``time_held``.  ``library``: {name: call} of the PyTorch
+    calls that compute the same function (each already held against the
+    plain version).  Each is timed the same two ways; the fastest by
+    ``ms`` is reported as ``library_ms``/``library_device_ms`` and named
+    in ``library_call``, and every other one stands beside it as
+    ``<name>_ms``/``<name>_device_ms``."""
     t = dict(ms=time_ms(kernel, iters),
-             plain_ms=time_ms(plain, 3, warmup=1),
-             library_ms=None if library is None else time_ms(library, iters))
+             plain_ms=time_ms(plain, 3, warmup=1))
     t["device_ms"], t["host_us"] = time_held(kernel, iters)
-    t["library_device_ms"] = (None if library is None
-                              else time_held(library, iters)[0])
+    lib = {name: (time_ms(call, iters), time_held(call, iters)[0])
+           for name, call in library.items()}
+    best = min(lib, key=lambda name: lib[name][0], default=None)
+    t["library_call"] = best
+    t["library_ms"], t["library_device_ms"] = lib.get(best, (None, None))
+    for name, (ms, device_ms) in lib.items():
+        if name != best:
+            t[f"{name}_ms"], t[f"{name}_device_ms"] = ms, device_ms
     return t
 
 
 def times_text(t) -> str:
     return " ".join(f"{k}={t[k]!r}" for k in (
-        "ms", "device_ms", "host_us", "plain_ms", "library_ms",
-        "library_device_ms", "bound_ms")) + f" ({t['bound_by']})"
+        "ms", "device_ms", "host_us", "plain_ms", "library_call",
+        "library_ms", "library_device_ms", "bound_ms")) + \
+        f" ({t['bound_by']})"
 
 
 def bound(flops: float, nbytes: float):
@@ -228,6 +265,22 @@ def check_cap_binds(name: str, want, uncapped, dtype) -> float:
     return rel
 
 
+def same_function(what: str, out, want) -> bool:
+    """Print whether a library call's ``out`` agrees with the plain
+    version's ``want`` under TOL and REL_TOL (then it computes the same
+    function, and its time may stand beside the kernel's)."""
+    dtype = want.dtype
+    err, rel = max_err(out, want), rel_err(out, want)
+    agrees = (bool(torch.allclose(out.float(), want.float(), rtol=TOL[dtype],
+                                  atol=TOL[dtype]))
+              and rel < REL_TOL[dtype])
+    print(f"    {what} against the plain version: max_abs_err={err:.3g} "
+          f"rel_err={rel:.3g}: " + ("the same function" if agrees else
+                                    "DISAGREES, so no library time is "
+                                    "reported for it"))
+    return agrees
+
+
 def check_close(name: str, got, want, dtype, tols=TOL) -> float:
     err = max_err(got, want)
     tol = tols[dtype]
@@ -261,14 +314,15 @@ def layer_windows(cfg):
     return sorted({d.window for d in block_pattern(cfg)})
 
 
-def flash_cases(prompt_lens, windowed):
+def flash_cases(prompt_lens, models):
     """(label, B, S, T, H, KVH, D, dtype, kwargs) — the engine's prefill
     shapes first, then the sweeps of tests/test_kernels.py, then each
-    windowed model's (``windowed``: (cfg, its prompt lengths)) at its own
-    heads and softcap: its longest prefill in every kind of layer, the
-    64-row tile edges, kv_len.  Cases whose ``q_boost`` scales q past the
-    cap also check that the cap binds; ``model`` marks a windowed model's
-    cases (also held under REL_TOL), ``timed`` the shapes timed later."""
+    further attention model's (``models``: (cfg, its prompt lengths)) at
+    its own heads, windows and softcap: its longest prefill in every kind
+    of layer, the 64-row tile edges, kv_len.  Cases whose ``q_boost``
+    scales q past the cap also check that the cap binds; ``model`` marks a
+    model's cases (also held under REL_TOL), ``timed`` the shapes timed
+    later."""
     cases = [(f"main S={s}", 1, s, s, 16, 16, 128, torch.bfloat16,
               dict(causal=True, scale=128 ** -0.5)) for s in prompt_lens]
     for S, H, KVH, D in [(64, 4, 2, 32), (100, 4, 4, 64), (33, 8, 2, 128)]:
@@ -287,7 +341,7 @@ def flash_cases(prompt_lens, windowed):
         for S in (1, 63, 64, 65, 129):              # the 64-row tile edges
             cases.append((f"edge S={S}", 1, S, S, 4, 2, 128, dt,
                           dict(causal=True, scale=128 ** -0.5)))
-    for cfg, lens in windowed:
+    for cfg, lens in models:
         H, KVH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         cap, S, name = cfg.attn_logit_softcap, max(lens), cfg.name
         base = dict(causal=True, scale=D ** -0.5, softcap=cap, model=name)
@@ -313,11 +367,11 @@ def flash_cases(prompt_lens, windowed):
     return cases
 
 
-def check_flash(prompt_lens, windowed, gen):
+def check_flash(prompt_lens, models, gen):
     from repro_torch.kernels import flash_attention as FA
     main_err, errs = 0.0, {}
     for label, B, S, T, H, KVH, D, dt, kw in flash_cases(prompt_lens,
-                                                         windowed):
+                                                         models):
         kw = dict(kw)
         boost, model = kw.pop("q_boost", 1.0), kw.pop("model", None)
         timed = kw.pop("timed", False)
@@ -346,25 +400,25 @@ def check_flash(prompt_lens, windowed, gen):
         print(f"  {name}: {text}")
 
     # timing at the shortest prompt of the engine's traffic (its own line),
-    # then at each windowed model's longest in every kind of layer, then at
+    # then at each further model's longest in every kind of layer, then at
     # olmo-1b's longest (the kernels line)
     S = min(prompt_lens)
     print(f"  flash_attention at q/k/v [1,{S},16,128] bf16 causal: "
           f"{times_text(time_flash(FA, S, gen))}")
     extra = []
-    for cfg, lens in windowed:
+    for cfg, lens in models:
         H, KVH, D, S = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                         max(lens))
         for window in layer_windows(cfg):
             t = time_flash(FA, S, gen, H=H, KVH=KVH, D=D, window=window,
                            softcap=cfg.attn_logit_softcap)
-            t["model"] = cfg.name
+            t["model"], t["window"] = cfg.name, window
             t["shape"] = (f"q [1,{S},{H},{D}], k/v [1,{S},{KVH},{D}] bf16 "
                           f"causal, window {window}, softcap "
                           f"{cfg.attn_logit_softcap:g}")
             t["max_abs_err"] = errs[cfg.name, window]
             print(f"  flash_attention at {t['shape']}: {times_text(t)}")
-            print_sdpa_without_softcap("flash_attention", t)
+            print_beside("flash_attention", t)
             extra.append(t)
     S = max(prompt_lens)
     t = time_flash(FA, S, gen)
@@ -372,26 +426,34 @@ def check_flash(prompt_lens, windowed, gen):
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces="src/repro/kernels/flash_attention.py:82",
                 max_abs_err=main_err, **t,
-                shape=f"q/k/v [1,{S},16,128] bf16 causal", windowed=extra)
+                shape=f"q/k/v [1,{S},16,128] bf16 causal", models=extra)
 
 
-def print_sdpa_without_softcap(kernel: str, t) -> None:
+def print_beside(kernel: str, t) -> None:
+    """The calls timed beside the library call: SDPA without the softcap
+    (a different function), and every other call that computes the same
+    function but was slower by ``ms``."""
     if "sdpa_without_softcap_ms" in t:
         print(f"  {kernel} at {t['shape']}: SDPA without the softcap (a "
               f"different function): ms={t['sdpa_without_softcap_ms']!r} "
               f"device_ms={t['sdpa_without_softcap_device_ms']!r}")
+    for name in LIBRARY_CALLS:
+        if f"{name}_ms" in t:
+            print(f"  {kernel} at {t['shape']}: {name} (the same function, "
+                  f"slower than {t['library_call']}): "
+                  f"ms={t[f'{name}_ms']!r} "
+                  f"device_ms={t[f'{name}_device_ms']!r}")
 
 
-def flex_softcap_call(q, k, v, want, *, scale: float, softcap: float,
-                      mask_mod, B):
+def flex_call(q, k, v, want, *, scale: float, softcap: float, mask_mod, B):
     """One call of ``torch.nn.attention.flex_attention`` computing the
-    kernels' softcapped attention: the softcap as its score_mod, the mask
-    as a block mask, GQA by enable_gqa; q [B, H, Sq, D], k/v [B, KVH, T,
-    D].  It is compiled here, outside any timing, after dynamo's caches
-    are cleared (a compiled graph is otherwise reused for a new mask_mod
-    whose identity guard it passes), and returned only if it agrees with
-    ``want`` (the plain version, [B, Sq, H, D]) under TOL and REL_TOL;
-    otherwise None, so no time is reported for a different function."""
+    kernels' attention: a softcap as its score_mod, the mask as a block
+    mask, GQA by enable_gqa; q [B, H, Sq, D], k/v [B, KVH, T, D].  It is
+    compiled here, outside any timing, after dynamo's caches are cleared
+    (a compiled graph is otherwise reused for a new mask_mod whose
+    identity guard it passes), and returned only if it computes the same
+    function as ``want`` (the plain version, [B, Sq, H, D]); otherwise
+    None, so no time is reported for a different function."""
     from torch.nn.attention.flex_attention import (create_block_mask,
                                                    flex_attention)
 
@@ -404,37 +466,32 @@ def flex_softcap_call(q, k, v, want, *, scale: float, softcap: float,
                                    KV_LEN=k.shape[2], device=q.device)
 
     def call():
-        return flex(q, k, v, score_mod=score_mod, block_mask=block_mask,
-                    scale=scale, enable_gqa=q.shape[1] != k.shape[1])
+        return flex(q, k, v, score_mod=score_mod if softcap else None,
+                    block_mask=block_mask, scale=scale,
+                    enable_gqa=q.shape[1] != k.shape[1])
 
     t0 = time.monotonic()
     out = call().transpose(1, 2)
     torch.cuda.synchronize()
-    err, rel = max_err(out, want), rel_err(out, want)
-    agrees = (bool(torch.allclose(out.float(), want.float(),
-                                  rtol=TOL[q.dtype], atol=TOL[q.dtype]))
-              and rel < REL_TOL[q.dtype])
-    print(f"    flex_attention (compiled in {time.monotonic() - t0:.1f} s) "
-          f"against the plain version: max_abs_err={err:.3g} "
-          f"rel_err={rel:.3g}: "
-          + ("the same function" if agrees else
-             "DISAGREES, so no library time is reported"))
-    return call if agrees else None
+    what = f"flex_attention (compiled in {time.monotonic() - t0:.1f} s)"
+    return call if same_function(what, out, want) else None
 
 
 def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
                softcap=0.0):
     """Kernel, plain and library times at q [1, S, H, D], k/v [1, S, KVH,
     D] bf16, causal, beside the card's bound for the (q, k) pairs the
-    band holds.  The library call is SDPA; under a softcap, which SDPA
-    lacks, it is flex_attention with the cap as its score_mod, and SDPA
-    without the cap is timed apart (``sdpa_without_softcap_*``, a
-    different function)."""
+    band holds.  The library calls (kernel_times picks the fastest): SDPA
+    (a window as a boolean mask, GQA by enable_gqa), and under a window
+    or a softcap flex_attention (the window as a block mask, the cap as
+    its score_mod).  SDPA has no softcap: under one it is timed apart
+    (``sdpa_without_softcap_*``, a different function)."""
     q = torch.randn(1, S, H, D, generator=gen, device="cuda").bfloat16()
     k, v = (torch.randn(1, S, KVH, D, generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    want = FA.flash_attention_plain(q, k, v, **kw)
     mask = None
     if window:
         pos = torch.arange(S, device="cuda")
@@ -446,17 +503,20 @@ def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
             qt, kt, vt, attn_mask=mask, is_causal=mask is None,
             scale=kw["scale"], enable_gqa=KVH != H)
 
-    library = sdpa
-    if softcap:
+    library = {}
+    if not softcap and same_function("sdpa", sdpa().transpose(1, 2), want):
+        library["sdpa"] = sdpa
+    if softcap or window:
         if window:
             def mask_mod(b, h, q_idx, kv_idx):
                 return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
         else:
             def mask_mod(b, h, q_idx, kv_idx):
                 return q_idx >= kv_idx
-        library = flex_softcap_call(
-            qt, kt, vt, FA.flash_attention_plain(q, k, v, **kw),
-            scale=kw["scale"], softcap=softcap, mask_mod=mask_mod, B=None)
+        flex = flex_call(qt, kt, vt, want, scale=kw["scale"],
+                         softcap=softcap, mask_mod=mask_mod, B=None)
+        if flex is not None:
+            library["flex_attention"] = flex
     t = kernel_times(lambda: FA.flash_attention_cuda(q, k, v, **kw),
                      lambda: FA.flash_attention_plain(q, k, v, **kw),
                      library)
@@ -484,9 +544,9 @@ def paged_inputs(B, H, KVH, D, ps, maxp, dt, gen, *, identity, lengths,
     return q, kp, vp, pt, ln
 
 
-def check_paged(max_len, prompt_lens, windowed, gen):
-    """``windowed``: (cfg, its prompt lengths, its max_len) for each model
-    with a sliding window."""
+def check_paged(max_len, prompt_lens, models, gen):
+    """``models``: (cfg, its prompt lengths, its max_len) for each further
+    attention model."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models.layers import page_size
     ps = page_size(max_len)
@@ -522,41 +582,41 @@ def check_paged(max_len, prompt_lens, windowed, gen):
             ("one split", 33, 16, 8, 128, 16, 4, dt, False,
              [1 + (i * 13) % 64 for i in range(33)], 128 ** -0.5, 0.0, {}),
         ]
-    # each windowed model's decode at its own heads and softcap: its ring
-    # of `window` slots (the engine passes lengths up to T; the kernel
-    # clamps those past it) and its global cache, as the engine's slot
-    # caches hold them mid-decode
+    # each further model's decode at its own heads and softcap: a windowed
+    # model's ring of `window` slots (the engine passes lengths up to T;
+    # the kernel clamps those past it), its global cache, as the engine's
+    # slot caches hold them mid-decode
     timed = ["main slot cache"]
-    for cfg, lens, w_max_len in windowed:
+    for cfg, lens, m_max_len in models:
         H, KVH, D, name = (cfg.num_heads, cfg.num_kv_heads, cfg.head_dim,
                            cfg.name)
         cap, W = cfg.attn_logit_softcap, cfg.sliding_window
-        ring_T = min(w_max_len, W)
-        caches = [(f"{name} ring", ring_T,
-                   [min(n, ring_T) for n in decode_lens(w_max_len, lens)])]
+        caches = []                     # (label, T, lengths, layer window)
+        if W:
+            ring_T = min(m_max_len, W)
+            caches.append((f"{name} ring", ring_T, [
+                min(n, ring_T) for n in decode_lens(m_max_len, lens)], W))
         if 0 in layer_windows(cfg):
-            caches.append((f"{name} global", w_max_len,
-                           decode_lens(w_max_len, lens)))
+            caches.append((f"{name} global", m_max_len,
+                           decode_lens(m_max_len, lens), 0))
         meta = dict(model=name)
         for dt in (torch.float32, torch.bfloat16):
-            for label, T, c_lens in caches:
+            for label, T, c_lens, window in caches:
                 c_ps = page_size(T)
                 for boost in (1.0, CAP_BOOST[dt]) if cap else (1.0,):
                     cases.append((f"{label} q*{boost:g}", MAX_NUM_SEQS, H,
                                   KVH, D, c_ps, T // c_ps, dt, True, c_lens,
                                   D ** -0.5, cap,
-                                  dict(meta, q_boost=boost)))
-            r_ps = page_size(ring_T)
+                                  dict(meta, q_boost=boost, window=window)))
+                cases.append((f"{label} at and past T", MAX_NUM_SEQS, H, KVH,
+                              D, c_ps, T // c_ps, dt, True,
+                              [T, T + 1, 1, T - 1], D ** -0.5, cap, meta))
             cases += [
-                (f"{name} ring at and past T", MAX_NUM_SEQS, H, KVH, D, r_ps,
-                 ring_T // r_ps, dt, True, [ring_T, ring_T + 1, 1,
-                                            ring_T - 1], D ** -0.5, cap,
-                 meta),
                 (f"{name} one split", 264 // KVH, H, KVH, D, 16, 4, dt,
                  False, [1 + (i * 13) % 64 for i in range(264 // KVH)],
                  D ** -0.5, cap, meta),
             ]
-        timed += [f"{label} q*1" for label, _, _ in caches]
+        timed += [f"{label} q*1" for label, _, _, _ in caches]
     main_err = 0.0
     sms = PA.sm_count(torch.device("cuda"))
     to_time = {}
@@ -584,23 +644,23 @@ def check_paged(max_len, prompt_lens, windowed, gen):
         if label.startswith("main"):
             main_err = err
         if label in timed and dt == torch.bfloat16:
-            to_time[label] = (args, scale, cap, n_split, meta.get("model"),
-                              err)
+            to_time[label] = (args, scale, cap, n_split, meta, err)
         print(f"  {name} ({n_split} splits of {span}): {text}")
 
     extra = []
     for label in timed[1:]:
-        args, scale, cap, n_split, model, err = to_time[label]
+        args, scale, cap, n_split, meta, err = to_time[label]
         t = time_paged(PA, args, scale, cap)
         B, H, D = args[0].shape
-        t["model"] = model
+        t["model"], t["window"] = meta["model"], meta["window"]
+        t["capacity"] = args[3].shape[1] * args[1].shape[1]   # the cache's T
         t["shape"] = (f"{label.removesuffix(' q*1')}: q [{B},{H},{D}] over "
                       f"{tuple(args[1].shape)} bf16 pages, lengths "
                       f"{args[4].tolist()}, softcap {cap:g}, {n_split} "
                       f"splits")
         t["max_abs_err"] = err
         print(f"  paged_attention at {t['shape']}: {times_text(t)}")
-        print_sdpa_without_softcap("paged_attention", t)
+        print_beside("paged_attention", t)
         extra.append(t)
     args, scale, cap, n_split, _, _ = to_time["main slot cache"]
     t = time_paged(PA, args, scale, cap)
@@ -611,7 +671,7 @@ def check_paged(max_len, prompt_lens, windowed, gen):
                 shape=f"q [{MAX_NUM_SEQS},16,128], slot cache "
                       f"[{MAX_NUM_SEQS},{max_len},16,128] bf16, ps={ps}, "
                       f"lengths {main_lens}, {n_split} splits",
-                windowed=extra)
+                models=extra)
 
 
 def decode_lens(max_len: int, prompt_lens):
@@ -626,7 +686,8 @@ def time_paged(PA, args, scale: float, softcap: float = 0.0):
     card's bound.  The library call is SDPA on the dense cache, masked to
     each length; under a softcap, flex_attention with the cap as its
     score_mod and the lengths as its block mask, and SDPA without the cap
-    is timed apart (``sdpa_without_softcap_*``, a different function)."""
+    is timed apart (``sdpa_without_softcap_*``, a different function).
+    Each is held against the plain version before it is timed."""
     q, kp, vp, pt, ln = args
     B, H, D = q.shape
     _, ps, KVH, _ = kp.shape
@@ -642,17 +703,19 @@ def time_paged(PA, args, scale: float, softcap: float = 0.0):
             q[:, :, None], kd, vd, attn_mask=mask, scale=scale,
             enable_gqa=KVH != H)
 
-    library = sdpa
+    want = PA.paged_attention_plain(*args, scale=scale, softcap=softcap)
+    library = {}
+    if not softcap and same_function("sdpa", sdpa()[:, :, 0], want):
+        library["sdpa"] = sdpa
     if softcap:
         held = ln.clamp(max=T)
 
         def mask_mod(b, h, q_idx, kv_idx):
             return kv_idx < held[b]
-        library = flex_softcap_call(
-            q[:, :, None], kd, vd,
-            PA.paged_attention_plain(*args, scale=scale,
-                                     softcap=softcap)[:, None],
-            scale=scale, softcap=softcap, mask_mod=mask_mod, B=B)
+        flex = flex_call(q[:, :, None], kd, vd, want[:, None], scale=scale,
+                         softcap=softcap, mask_mod=mask_mod, B=B)
+        if flex is not None:
+            library["flex_attention"] = flex
     t = kernel_times(
         lambda: PA.paged_attention_cuda(*args, scale=scale, softcap=softcap),
         lambda: PA.paged_attention_plain(*args, scale=scale,
@@ -742,7 +805,7 @@ def check_ssd(prompt_lens, gen):
     t = kernel_times(
         lambda: SSD.ssd_scan_cuda(*args, chunk=chunk, initial_state=st),
         lambda: SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st),
-        None)
+        {})
     rows = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
     flops = B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in rows)
     x, dt, A, Bm, Cm = args
@@ -762,15 +825,17 @@ def check_ssd(prompt_lens, gen):
 
 # -------------------------------------------------------------------- model
 
-def prefill_decode(model, params, toks, P: int):
-    """Prefill ``toks[:, :P]``, then decode the rest teacher-forced.
-    Returns (logits [B, S-P+1, V], prefill ms, ms a decode step), the
+def prefill_decode(model, params, toks, P: int, batch=None):
+    """Prefill ``toks[:, :P]`` (or ``batch``, a VLM's first P embeds and
+    positions), then decode the rest of ``toks`` teacher-forced.  Returns
+    (logits [B, S-P+1, V], prefill ms, ms a decode step, the cache), the
     times on the host clock to a synchronize."""
     B, S = toks.shape
     cache = model.init_cache(B, S, device="cuda")
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    lg, cache, _ = model.prefill(params, {"tokens": toks[:, :P]}, cache)
+    lg, cache, _ = model.prefill(
+        params, batch or {"tokens": toks[:, :P]}, cache)
     torch.cuda.synchronize()
     t1 = time.monotonic()
     steps = [lg]
@@ -782,7 +847,7 @@ def prefill_decode(model, params, toks, P: int):
     torch.cuda.synchronize()
     t2 = time.monotonic()
     return (torch.stack(steps, 1), 1e3 * (t1 - t0),
-            1e3 * (t2 - t1) / (S - P))
+            1e3 * (t2 - t1) / (S - P), cache)
 
 
 def compare_logits(what: str, got, ref) -> float:
@@ -820,7 +885,7 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
     with torch.inference_mode():
         x, _ = plain.forward(params, {"tokens": toks})
         ref = plain._logits(params, x[:, P - 1:])          # [B, 17, V]
-    got, prefill_ms, step_ms = prefill_decode(kernel, params, toks, P)
+    got, prefill_ms, step_ms, _ = prefill_decode(kernel, params, toks, P)
     print(f"  model: kernel path, host clock to a synchronize: prefill "
           f"{B}x{P} {prefill_ms!r} ms, decode step (batch {B}) "
           f"{step_ms!r} ms")
@@ -835,7 +900,7 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
         print(f"  model: max softmax err {prob_err:.3g} is {where} the "
               f"{SSM_DECODE_EXACT} of tests/test_models_decode.py::"
               f"test_mamba2_decode_exact (reported, not gated)")
-    same, _, _ = prefill_decode(plain, params, toks, P)
+    same = prefill_decode(plain, params, toks, P)[0]
     compare_logits(f"{steps}, kernel path vs plain path, the same steps",
                    got, same)
 
@@ -848,8 +913,6 @@ def check_softcap_binds(cfg, params, seed: int, boost: float = 100.0,
     compare_logits' gates, and its logits must lie five times closer (mean
     absolute difference) to the plain path's than the plain path without
     the cap does, so a kernel path that lost the cap would fail."""
-    import dataclasses
-
     from repro_torch.models import build_model
     boosted = dict(params, blocks=[
         dict(b, attn=dict(b["attn"], wq=b["attn"]["wq"] * boost))
@@ -864,7 +927,7 @@ def check_softcap_binds(cfg, params, seed: int, boost: float = 100.0,
             plain = build_model(c, attn_impl="plain")
             x, _ = plain.forward(boosted, {"tokens": toks})
             refs.append(plain._logits(boosted, x[:, P - 1:]).float())
-    got, _, _ = prefill_decode(build_model(cfg), boosted, toks, P)
+    got = prefill_decode(build_model(cfg), boosted, toks, P)[0]
     what = (f"query projections x{boost:g}, 1x{P} prompt + "
             f"{MODEL_DECODE_STEPS} decode steps")
     compare_logits(f"{what}, kernel path vs plain path teacher-forced",
@@ -878,6 +941,125 @@ def check_softcap_binds(cfg, params, seed: int, boost: float = 100.0,
     require(5 * err < moved, f"model: {what}: the logit softcap does not "
                              f"bind (kernel path {err:.3g} from the plain "
                              f"path, without the cap {moved:.3g})")
+
+
+def print_ring_wrap(cfg, longest: int, max_len: int) -> None:
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    T = min(max_len, cfg.sliding_window)
+    rings = num_repeats(cfg) * sum(1 for d in block_pattern(cfg)
+                                   if d.window)
+    require(longest > T, f"{cfg.name}: the longest prompt ({longest}) "
+                         f"does not pass the {T}-slot ring")
+    print(f"  model: {cfg.name}'s longest engine prompt, {longest} tokens, "
+          f"wraps all {rings} of its {cfg.num_layers} layers' {T}-slot ring "
+          f"caches (window {cfg.sliding_window}, slot cache {max_len})")
+
+
+def image_batch(cfg, params, toks, P: int, seed: int):
+    """A VLM's embeds [B, S, d] and M-RoPE positions [3, B, S] for
+    ``toks``: text embedded from the tokens at positions i, i, i, and an
+    IMAGE_GRID x IMAGE_GRID patch grid of random bf16 embeds (std
+    d_model^-0.5, as the embedding's) ending 32 tokens before P, its rows
+    at t = s0, h = s0 + row, w = s0 + col.  Returns (embeds, positions,
+    s0)."""
+    B, S = toks.shape
+    n_img = IMAGE_GRID * IMAGE_GRID
+    s0 = P - 32 - n_img
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 4)
+    emb = params["embed"][toks].clone()
+    emb[:, s0:s0 + n_img] = (torch.randn(B, n_img, cfg.d_model,
+                                         generator=gen, device="cuda")
+                             * cfg.d_model ** -0.5).bfloat16()
+    pos = torch.arange(S, device="cuda")[None, None].repeat(3, B, 1)
+    patch = torch.arange(n_img, device="cuda")
+    pos[0, :, s0:s0 + n_img] = s0
+    pos[1, :, s0:s0 + n_img] = s0 + patch // IMAGE_GRID
+    pos[2, :, s0:s0 + n_img] = s0 + patch % IMAGE_GRID
+    return emb, pos, s0
+
+
+def check_mrope(cfg, params, seed: int, B: int = 2, P: int = 320) -> None:
+    """A VLM fed embeds with M-RoPE positions whose rows differ
+    (``image_batch``): the kernel path's prefill of the first P positions
+    plus teacher-forced decode against the plain path's forward under
+    compare_logits' gates; and the plain path at replicated positions
+    (plain RoPE over the same embeds) must lie five times farther
+    (mean absolute logit difference) from it than the kernel path does,
+    so the sections reached the logits."""
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(seed + 5)
+    S = P + MODEL_DECODE_STEPS
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                        dtype=torch.long, device="cuda")
+    emb, pos, s0 = image_batch(cfg, params, toks, P, seed)
+    plain = build_model(cfg, attn_impl="plain")
+    refs = []
+    with torch.inference_mode():
+        for p in (pos, None):                 # None: arange, replicated
+            x, _ = plain.forward(params, {"embeds": emb, "positions": p})
+            refs.append(plain._logits(params, x[:, P - 1:]).float())
+    got, prefill_ms, step_ms, _ = prefill_decode(
+        build_model(cfg), params, toks, P,
+        batch={"embeds": emb[:, :P], "positions": pos[..., :P]})
+    what = (f"embeds {B}x{P} with a {IMAGE_GRID}x{IMAGE_GRID} patch grid at "
+            f"{s0} (M-RoPE rows t/h/w differ) + {MODEL_DECODE_STEPS} "
+            f"decode steps")
+    print(f"  model: {what}: kernel path prefill {prefill_ms!r} ms, decode "
+          f"step {step_ms!r} ms (host clock)")
+    require(tuple(got.shape) == (B, S - P + 1, cfg.vocab_size),
+            f"model: {what}: logits shape {tuple(got.shape)}")
+    compare_logits(f"{what}, kernel path vs plain path teacher-forced",
+                   got, refs[0])
+    err = float((got.float() - refs[0]).abs().mean())
+    moved = float((refs[1] - refs[0]).abs().mean())
+    print(f"  model: {what}: mean |logit difference| kernel vs plain "
+          f"{err:.3g}, replicated positions vs the image's {moved:.3g} "
+          f"(gate: 5x apart; the softmax moves "
+          f"{max_err(refs[0].softmax(-1), refs[1].softmax(-1)):.3g})")
+    require(5 * err < moved, f"model: {what}: the M-RoPE rows do not move "
+                             f"the logits (kernel path {err:.3g} from the "
+                             f"plain path, replicated positions {moved:.3g})")
+
+
+def check_int8(cfg, params, seed: int, B: int = 2, P: int = 256) -> None:
+    """An int8 KV cache on the card: the kernel path's prefill of B x P
+    tokens plus teacher-forced decode leaves every layer's cache holding
+    torch.int8 values with scales above zero at every filled slot; and its
+    logits differ from the same model's with bf16 caches (so quantization
+    ran) but stay within compare_logits' gates of them."""
+    from repro_torch.models import build_model
+    rng = np.random.default_rng(seed + 6)
+    S = P + MODEL_DECODE_STEPS
+    toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
+                        dtype=torch.long, device="cuda")
+    int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+    got, prefill_ms, step_ms, cache = prefill_decode(build_model(int8),
+                                                     params, toks, P)
+    for c in cache:
+        require(c["k"].dtype == torch.int8 and c["v"].dtype == torch.int8,
+                f"model: int8 cache holds {c['k'].dtype}/{c['v'].dtype}")
+        for name in ("k_scale", "v_scale"):    # a ring is filled: T < S
+            filled = c[name][:, :, :S]
+            require(bool((filled > 0).all()),
+                    f"model: int8 cache: {name} is zero at a filled slot")
+    scales = torch.cat([c["k_scale"][:, :, :S].reshape(-1) for c in cache])
+    print(f"  model: {cfg.name} int8 KV cache: k/v {cache[0]['k'].dtype}, "
+          f"{tuple(cache[0]['k'].shape)} a layer group; k scales at the "
+          f"{min(S, cache[0]['k'].shape[2])} filled slots in "
+          f"[{float(scales.min()):.3g}, {float(scales.max()):.3g}], none "
+          f"zero; kernel path prefill {B}x{P} {prefill_ms!r} ms, decode "
+          f"step {step_ms!r} ms (host clock)")
+    del cache
+    bf16 = dataclasses.replace(cfg, kv_cache_dtype="bfloat16")
+    other = prefill_decode(build_model(bf16), params, toks, P)[0]
+    diff = float((got[:, 1:].float() - other[:, 1:].float()).abs().max())
+    print(f"  model: int8 vs bf16 KV caches, decode steps: logits max abs "
+          f"diff {diff:.3g}")
+    require(diff > 0, "model: int8 and bf16 caches give the same decode "
+                      "logits: the cache was not quantized")
+    compare_logits(f"{B}x{P} prompt + {MODEL_DECODE_STEPS} decode steps, "
+                   f"int8 KV cache vs bf16 KV cache", got, other)
 
 
 def print_trace(prof, per: int, host_ms: float, what: str):
@@ -943,7 +1125,8 @@ def profile_prefill(cfg, params, prompt_len: int, seed: int, runs: int = 5):
 def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
     """One decode step at the engine's shape (MAX_NUM_SEQS sequences over a
     max_len slot cache): its host-clock time, and from torch.profiler the
-    device's busy time, its kernel launches and its costliest kernels."""
+    device's busy time, its kernel launches and its costliest kernels.
+    Returns (host ms, busy ms) a step."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import build_model
@@ -965,13 +1148,14 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
         run()
         host_ms.append(1e3 * (time.monotonic() - t0) / steps)
     step_ms = float(np.median(host_ms))
-    what = f"decode step at the engine's shape (batch {B}, cache {max_len})"
+    what = (f"decode step at the engine's shape (batch {B}, cache {max_len}, "
+            f"{cfg.kv_cache_dtype} KV)")
     print(f"  {what}: host clock {step_ms!r} ms (median of 5 runs of "
           f"{steps} steps: {', '.join(f'{t:.3f}' for t in sorted(host_ms))})")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    print_trace(prof, steps, step_ms, what)
+    return step_ms, print_trace(prof, steps, step_ms, what)[0]
 
 
 # ------------------------------------------------------------------- engine
@@ -985,8 +1169,32 @@ def path_kernels(cfg):
     return {"flash_attention": "prefill", "paged_attention": "decode"}
 
 
-def check_launches(cfg, mode: str, counts) -> None:
-    """Gate one mode's launch counts on the model's path kernels."""
+def kind_of(name: str) -> str:
+    """What a kernel's wrapper counts its launches by: "window" (flash),
+    "capacity" (paged) or "variant" (the SSD scan)."""
+    from repro_torch.kernels.ops import KIND_COUNTS
+    return KIND_COUNTS[name].removesuffix("_launches")
+
+
+def layers_by_kind(cfg, max_len: int):
+    """A model's attention layers counted by the kind each kernel's wrapper
+    counts them under: flash by window, paged by the slot cache's capacity
+    (a windowed layer's ring holds min(max_len, window) slots)."""
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    kinds = {"flash_attention": {}, "paged_attention": {}}
+    for d in block_pattern(cfg):
+        if d.is_attn:
+            T = min(max_len, d.window) if d.window else max_len
+            for name, kind in (("flash_attention", d.window),
+                               ("paged_attention", T)):
+                kinds[name][kind] = kinds[name].get(kind, 0) + num_repeats(cfg)
+    return kinds
+
+
+def check_launches(cfg, mode: str, counts, kinds, max_len: int) -> None:
+    """Gate one mode's launch counts on the model's path kernels, and an
+    attention model's counts by kind: every layer of every kind launched
+    each kernel once a prefill or a decode step."""
     n_layers = cfg.num_layers
     for name, n in counts.items():
         phase = path_kernels(cfg).get(name)
@@ -1004,14 +1212,23 @@ def check_launches(cfg, mode: str, counts) -> None:
                     f"a multiple of {n_layers} and "
                     f">= {n_layers * (MAX_NEW - 1)}")
             print(f"  engine[{mode}]: decode steps={n // n_layers}")
+    if cfg.attention_free:
+        return
+    for name, layers in layers_by_kind(cfg, max_len).items():
+        calls = counts[name] // n_layers
+        want = {kind: calls * n for kind, n in layers.items()}
+        require(counts[name] % n_layers == 0 and kinds[name] == want,
+                f"engine[{mode}]: {name} launched {kinds[name]} by "
+                f"{kind_of(name)}, expected {want} ({calls} calls of "
+                f"{n_layers} layers)")
 
 
 def run_engine(cfg, params, prompts, max_len):
     """Serve ``prompts`` in every mode.  Returns the launches of each
-    kernel and the SSD scan's launches by variant, summed over the
+    kernel, and each kernel's launches by kind (kind_of), summed over the
     modes."""
-    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
-    from repro_torch.kernels.ssd_scan import ssd_scan_cuda
+    from repro_torch.kernels.ops import (CUDA_WRAPPERS, KIND_COUNTS,
+                                         launch_counts, reset_launch_counts)
     from repro_torch.models import build_model
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.request import Request
@@ -1023,7 +1240,7 @@ def run_engine(cfg, params, prompts, max_len):
           f"disagg moves through host memory)")
     del one
     tokens, totals = {}, dict.fromkeys(launch_counts(), 0)
-    variants = dict.fromkeys(ssd_scan_cuda.variant_launches, 0)
+    kind_totals = {name: {} for name in CUDA_WRAPPERS}
     for mode in MODES:
         reqs = [Request(prompt_len=len(p), max_new_tokens=MAX_NEW,
                         prompt_tokens=p, arrival_time=0.0) for p in prompts]
@@ -1039,37 +1256,40 @@ def run_engine(cfg, params, prompts, max_len):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = launch_counts()
-        for k, n in counts.items():
-            totals[k] += n
-        ssd_variants = dict(ssd_scan_cuda.variant_launches)
-        for k, n in ssd_variants.items():
-            variants[k] += n
+        kinds = {name: {kind: n for kind, n in
+                        getattr(fn, KIND_COUNTS[name]).items() if n}
+                 for name, fn in CUDA_WRAPPERS.items()}
+        for name, n in counts.items():
+            totals[name] += n
+            for kind, m in kinds[name].items():
+                kind_totals[name][kind] = kind_totals[name].get(kind, 0) + m
         tokens[mode] = [r.output_tokens for r in reqs]
         print(f"  engine[{cfg.name} {mode}]: completed={res['completed']} "
               f"failed={res['failed']} ttft_mean_s={res['ttft_mean_s']!r} "
               f"ttft_p95_s={res['ttft_p95_s']!r} "
               f"tpot_mean_s={res['tpot_mean_s']!r} wall_s={wall!r} "
-              f"launches={counts} ssd_scan variants={ssd_variants}")
+              f"launches={counts} by kind={kinds}")
         require(res["completed"] == N_REQUESTS and res["failed"] == 0,
                 f"engine[{mode}]: {res['completed']}/{N_REQUESTS} completed")
         require(all(len(t) == MAX_NEW for t in tokens[mode]),
                 f"engine[{mode}]: a request stopped short")
-        check_launches(cfg, mode, counts)
+        check_launches(cfg, mode, counts, kinds, max_len)
         # the model runs in bf16: every prefill scan on the tensor cores
-        require(ssd_variants["wgmma"] == counts["ssd_scan"],
-                f"engine[{mode}]: ssd_scan variants {ssd_variants}, "
+        require(kinds["ssd_scan"].get("wgmma", 0) == counts["ssd_scan"],
+                f"engine[{mode}]: ssd_scan variants {kinds['ssd_scan']}, "
                 f"{counts['ssd_scan']} launches")
     for mode in MODES[1:]:
         require(tokens[mode] == tokens[MODES[0]],
                 f"engine: {mode} tokens differ from {MODES[0]}")
     print(f"  engine: tokens identical across {', '.join(MODES)}")
-    return totals, variants
+    return totals, kind_totals
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
+    t_start = time.monotonic()
 
     # 1. device
     if not torch.cuda.is_available():
@@ -1077,6 +1297,7 @@ def main() -> int:
               "needs an NVIDIA card", file=sys.stderr)
         return 1
     from repro_torch.configs import get_config
+    from repro_torch.configs.base import PosEmb
     from repro_torch.kernels import build
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1104,7 +1325,8 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     from repro_torch.models import build_model
-    cfgs = [get_config(a) for a in ARCHS]
+    cfgs = [get_config(a).reduced() if a in REDUCED else get_config(a)
+            for a in ARCHS]
     # the prompt lengths come first from the seed: the same for every vocab
     traffic = {cfg.name: engine_traffic(
         args.seed, cfg.vocab_size,
@@ -1113,62 +1335,95 @@ def main() -> int:
     # the main shapes are the first model's (olmo-1b's heads)
     prompt_lens = [len(p) for p in traffic[ARCHS[0]][0]]
     max_len = traffic[ARCHS[0]][1]
-    windowed = [(cfg, [len(p) for p in traffic[cfg.name][0]],
-                 traffic[cfg.name][1]) for cfg in cfgs if cfg.sliding_window]
+    # every further attention model's own heads, windows and softcap
+    models = [(cfg, [len(p) for p in traffic[cfg.name][0]],
+               traffic[cfg.name][1]) for cfg in cfgs[1:]
+              if not cfg.attention_free]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     print(f"[kernels] engine prompt lengths {prompt_lens}, max_len "
           f"{max_len}" + "".join(f"; {cfg.name}'s {lens}, max_len {n}"
-                                 for cfg, lens, n in windowed))
+                                 for cfg, lens, n in models
+                                 if cfg.sliding_window))
     kernels = [check_flash(prompt_lens,
-                           [(cfg, lens) for cfg, lens, _ in windowed], gen),
-               check_paged(max_len, prompt_lens, windowed, gen),
+                           [(cfg, lens) for cfg, lens, _ in models], gen),
+               check_paged(max_len, prompt_lens, models, gen),
                check_ssd(prompt_lens, gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
     launches = dict.fromkeys((k["name"] for k in kernels), 0)
-    by_model, ssd_variants = {}, {}
-    for cfg in cfgs:
+    by_model, kinds_by_model = {}, {}
+    for arch, cfg in zip(ARCHS, cfgs):
         # 4. model
         prompts, max_len = traffic[cfg.name]
         lens = [len(p) for p in prompts]
         t0 = time.monotonic()
         params = build_model(cfg).init(args.seed, device="cuda")
         n_params = sum(t.numel() for t in _leaves(params))
-        print(f"[model] {cfg.name} full width, {n_params} parameters, "
-              f"initialised in {time.monotonic() - t0:.1f} s")
-        if cfg.sliding_window:            # one prompt past the window
-            check_model(cfg, params, args.seed, B=1,
-                        P=cfg.sliding_window + CHECK_PAST_WINDOW)
-        else:
-            check_model(cfg, params, args.seed)
+        width = ("REDUCED width (reduced(): a cut, not the published model)"
+                 if arch in REDUCED else "full width")
+        print(f"[model] {cfg.name} {width}, {n_params} parameters, "
+              f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+              f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+              f"KV cache {cfg.kv_cache_dtype}, initialised in "
+              f"{time.monotonic() - t0:.1f} s")
+        # a windowed model's check: one prompt past the window
+        shape = (dict(B=1, P=cfg.sliding_window + CHECK_PAST_WINDOW)
+                 if cfg.sliding_window else {})
+        check_model(cfg, params, args.seed, **shape)
+        if cfg.sliding_window:
+            print_ring_wrap(cfg, max(lens), max_len)
         if cfg.attn_logit_softcap:
             check_softcap_binds(cfg, params, args.seed)
+        if cfg.pos_emb == PosEmb.MROPE:
+            check_mrope(cfg, params, args.seed)
+        if cfg.kv_cache_dtype == "int8" or arch in INT8_AT_WIDTH:
+            check_int8(cfg, params, args.seed, **shape)
         profile_prefill(cfg, params, max(lens), args.seed)
-        profile_decode(cfg, params, lens, max_len)
+        step_ms, busy_ms = profile_decode(cfg, params, lens, max_len)
+        if arch in INT8_AT_WIDTH:
+            int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
+            step8_ms, busy8_ms = profile_decode(int8, params, lens, max_len)
+            print(f"  model: {cfg.name}'s int8 KV caches cost "
+                  f"{busy8_ms - busy_ms!r} ms of device time a decode step "
+                  f"({busy8_ms!r} against bf16's {busy_ms!r}: quantizing "
+                  f"each write, dequantizing every layer's whole cache) "
+                  f"and {step8_ms - step_ms!r} ms on the host clock")
 
         # 5. engine (the main path: counters reset just before each mode)
         print(f"[engine] {cfg.name}: {N_REQUESTS} requests x {MAX_NEW} new "
               f"tokens, burst, max_num_seqs={MAX_NUM_SEQS}")
-        totals, variants = run_engine(cfg, params, prompts, max_len)
-        by_model[cfg.name] = totals
-        for name, n in totals.items():
+        by_model[cfg.name], kinds_by_model[cfg.name] = run_engine(
+            cfg, params, prompts, max_len)
+        for name, n in by_model[cfg.name].items():
             launches[name] += n
-        for name, n in variants.items():
-            ssd_variants[name] = ssd_variants.get(name, 0) + n
         del params
         torch.cuda.empty_cache()
 
     # 6. report
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-        k["launches_by_model"] = {m: n[k["name"]] for m, n in by_model.items()}
+        name = k["name"]
+        k["launches"] = launches[name]
+        k["launches_by_model"] = {m: n[name] for m, n in by_model.items()}
+        for row in k.get("models", []):
+            # the wrapper's own count of the launches of the row's kind
+            # (flash: its window; paged: its cache's capacity) in the
+            # row's model's engine runs
+            row["launches"] = kinds_by_model[row["model"]][name].get(
+                row[kind_of(name)], 0)
+            require(row["launches"] > 0,
+                    f"{name}: the engine never launched it on "
+                    f"{row['model']}'s {kind_of(name)} {row[kind_of(name)]}")
         k["passed"] = True
-        if k["name"] == "ssd_scan":      # the variants the main path ran
-            k["variant"] = "+".join(v for v, n in ssd_variants.items() if n)
-            k["variant_launches"] = ssd_variants
+        if name == "ssd_scan":           # the variants the main path ran
+            k["variant_launches"] = {v: sum(
+                kinds[name].get(v, 0) for kinds in kinds_by_model.values())
+                for v in ("wgmma", "cuda_core")}
+            k["variant"] = "+".join(
+                v for v, n in k["variant_launches"].items() if n)
         del k["shape"]
+    print(f"[report] the run took {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

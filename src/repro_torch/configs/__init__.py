@@ -11,7 +11,10 @@ from repro_torch.configs.base import (Activation, Family, ModelConfig, Norm,
 _ARCH_MODULES: Dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
 }
 
 

@@ -21,6 +21,14 @@ CUDA_WRAPPERS = {
     "ssd_scan": _ssd.ssd_scan_cuda,
 }
 
+# kernel name -> the wrapper's counts by kind, kept beside ``.launches``:
+# flash by window, paged by slot-cache capacity, the SSD scan by variant
+KIND_COUNTS = {
+    "flash_attention": "window_launches",
+    "paged_attention": "capacity_launches",
+    "ssd_scan": "variant_launches",
+}
+
 
 def _on_cuda(*tensors) -> bool:
     kinds = {t.device.type for t in tensors}
@@ -65,10 +73,9 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count, and its counts by variant where it
-    keeps them (``ssd_scan``: "wgmma" and "cuda_core")."""
-    for fn in CUDA_WRAPPERS.values():
+    """Zero every wrapper's count, and its counts by kind (KIND_COUNTS)."""
+    for name, fn in CUDA_WRAPPERS.items():
         fn.launches = 0
-        variants = getattr(fn, "variant_launches", {})
-        for name in variants:
-            variants[name] = 0
+        kinds = getattr(fn, KIND_COUNTS[name])
+        for kind in kinds:
+            kinds[kind] = 0

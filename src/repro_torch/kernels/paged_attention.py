@@ -153,7 +153,9 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
                          scale: float, softcap: float = 0.0):
     """Launch the CUDA kernel on the current stream; raises on anything
     the kernel does not take.  Page-table entries must lie in [0, P).
-    Counts its launches in ``.launches``."""
+    Counts its launches in ``.launches``, and by the capacity of a
+    sequence's pages (page-table width x page size, the slot cache's T) in
+    ``.capacity_launches``."""
     _check(q, k_pages, v_pages, page_tables, lengths)
     B, H, D = q.shape
     _, ps, KVH, _ = k_pages.shape
@@ -180,7 +182,10 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
     build.check(err, "paged_attention")
     with _count_lock:
         paged_attention_cuda.launches += 1
+        counts = paged_attention_cuda.capacity_launches
+        counts[maxp * ps] = counts.get(maxp * ps, 0) + 1
     return out
 
 
 paged_attention_cuda.launches = 0
+paged_attention_cuda.capacity_launches = {}

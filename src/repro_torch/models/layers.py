@@ -1,4 +1,5 @@
-"""Shared layers: norms, RoPE, attention, MLP (the dense decoder subset).
+"""Shared layers: norms, RoPE and M-RoPE, attention with bf16/fp32 or
+int8 KV caches, MLP (everything but cross-attention).
 
 Plain functions on tensors in the JAX package's layouts (activations
 ``[B, S, H, D]``, projections ``[d, H, D]``, caches ``[B, T, KVH, D]``), so
@@ -103,6 +104,44 @@ def apply_rope(x, cos, sin):
     c = cos[:, :, None, :]
     s = sin[:, :, None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def mrope_sections(head_dim: int) -> Tuple[int, int, int]:
+    """Qwen2-VL M-RoPE: temporal/height/width splits of the half-dim.
+    Published split for head_dim=128 is [16, 24, 24]; generalized as
+    (1/4, 3/8, 3/8) of half-dim."""
+    half = head_dim // 2
+    t = half // 4
+    h = (half - t) // 2
+    w = half - t - h
+    return t, h, w
+
+
+def mrope_cos_sin(positions_thw, head_dim: int, theta: float):
+    """positions_thw [3, B, S] -> cos/sin [B, S, head_dim//2].
+
+    Each frequency band takes its angle from the temporal / height / width
+    position row according to its section.  The sections are static, so
+    the rows are widened by expand: no index tensor, no host round trip.
+    """
+    inv = rope_freqs(head_dim, theta, positions_thw.device)  # [half]
+    pos = positions_thw.float()
+    pos_sel = torch.cat([pos[i, ..., None].expand(*pos.shape[1:], n)
+                         for i, n in enumerate(mrope_sections(head_dim))],
+                        dim=-1)                              # [B, S, half]
+    ang = pos_sel * inv
+    return torch.cos(ang), torch.sin(ang)
+
+
+def positional_cos_sin(cfg: ModelConfig, positions):
+    """Dispatch on cfg.pos_emb.  positions: [B,S] int or [3,B,S] for MROPE."""
+    if cfg.pos_emb == PosEmb.MROPE:
+        if positions.dim() == 2:  # text-only fallback: replicate across t/h/w
+            positions = positions[None].expand(3, *positions.shape)
+        return mrope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cfg.pos_emb == PosEmb.ROPE:
+        return rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    return None, None
 
 
 # --------------------------------------------------------------------------
@@ -244,36 +283,64 @@ def paged_decode_attention(q, k_cache, v_cache, *, scale: float, lengths,
 def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int,
                   window: int = 0, *, device, lead=()) -> Dict:
     """One attention layer's cache.  window > 0 -> a ring buffer of
-    ``min(max_len, window)`` slots, as the JAX twin makes."""
-    if cfg.kv_cache_dtype == "int8":
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet (ROADMAP queue 1 item 6)")
+    ``min(max_len, window)`` slots, as the JAX twin makes.  An int8 cache
+    holds int8 ``k``/``v`` and fp32 ``k_scale``/``v_scale`` [..., B, T, KVH]."""
     T = min(max_len, window) if window > 0 else max_len
     kvh, hd = cfg.num_kv_heads, cfg.head_dim
+    shape = (*lead, batch, T, kvh, hd)
+    if cfg.kv_cache_dtype == "int8":
+        return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+                "v": torch.zeros(shape, dtype=torch.int8, device=device),
+                "k_scale": torch.zeros(shape[:-1], device=device),
+                "v_scale": torch.zeros(shape[:-1], device=device)}
     dtype = torch.bfloat16 if cfg.kv_cache_dtype == "bfloat16" \
         else torch.float32
-    shape = (*lead, batch, T, kvh, hd)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def kv_read(cache: Dict) -> Tuple[torch.Tensor, torch.Tensor]:
+def _quantize_kv(x):
+    """[B, T, H, D] -> int8 values + per-(b,t,h) fp32 scales (round half
+    to even, as ``jnp.round``)."""
+    xf = x.float()
+    scale = torch.clamp_min(xf.abs().amax(-1) / 127.0, 1e-8)
+    return torch.round(xf / scale[..., None]).to(torch.int8), scale
+
+
+def _dequantize_kv(q, scale, dtype=torch.bfloat16):
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def kv_read(cache: Dict, dtype=torch.bfloat16
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The cache's K/V; an int8 cache dequantized to ``dtype``."""
+    if "k_scale" in cache:
+        return (_dequantize_kv(cache["k"], cache["k_scale"], dtype),
+                _dequantize_kv(cache["v"], cache["v_scale"], dtype))
     return cache["k"], cache["v"]
+
+
+def _put(cache: Dict, name: str, x, index) -> None:
+    """Write ``x`` into ``cache[name][index]`` in place; an int8 cache
+    takes its quantized values and their scales."""
+    if "k_scale" in cache:
+        x, scale = _quantize_kv(x)
+        cache[f"{name}_scale"][index] = scale
+    cache[name][index] = x.to(cache[name].dtype)
 
 
 def kv_write_prefill(cache: Dict, k, v) -> Dict:
     """Write a full prompt's K/V.  k/v: [B, S, KVH, D] (post-RoPE).  A
     prompt at least as long as the cache keeps its last T positions,
-    ring-aligned, as the JAX twin does."""
+    ring-aligned, as the JAX twin does (quantized after the roll)."""
     S = k.shape[1]
     T = cache["k"].shape[1]
-    if S >= T:
-        shift = S % T
-        cache["k"].copy_(torch.roll(k[:, S - T:], shift, dims=1))
-        cache["v"].copy_(torch.roll(v[:, S - T:], shift, dims=1))
-    else:
-        cache["k"][:, :S] = k
-        cache["v"][:, :S] = v
+    for name, x in (("k", k), ("v", v)):
+        if S >= T:
+            _put(cache, name, torch.roll(x[:, S - T:], S % T, dims=1),
+                 slice(None))
+        else:
+            _put(cache, name, x, (slice(None), slice(0, S)))
     return cache
 
 
@@ -283,8 +350,8 @@ def kv_write_decode(cache: Dict, k, v, lengths) -> Dict:
     T = cache["k"].shape[1]
     slots = (lengths % T).long()
     bidx = torch.arange(k.shape[0], device=k.device)
-    cache["k"][bidx, slots] = k[:, 0].to(cache["k"].dtype)
-    cache["v"][bidx, slots] = v[:, 0].to(cache["v"].dtype)
+    _put(cache, "k", k[:, 0], (bidx, slots))
+    _put(cache, "v", v[:, 0], (bidx, slots))
     return cache
 
 
@@ -309,8 +376,8 @@ def attention_forward(cfg: ModelConfig, p: Dict, x, positions, *,
                       attn_impl: str = "kernel"):
     """Teacher-forced / prefill attention.  x: [B, S, d_model].
     Returns (out, cache) — the cache written in place, or None."""
-    if cos is None and cfg.pos_emb == PosEmb.ROPE:
-        cos, sin = rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+    if cos is None:
+        cos, sin = positional_cos_sin(cfg, positions)
     q, k, v = _qkv(cfg, p, x, cos, sin)
     kw = dict(causal=causal, scale=_attn_scale(cfg), window=window,
               softcap=cfg.attn_logit_softcap)
@@ -345,12 +412,11 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
             f"the Pallas one, has no window.  The port's own caches are "
             f"rings of at most `window` slots (stack_cache_init), which "
             f"never reach this branch; use attn_impl='plain' for others")
-    if cos is None and cfg.pos_emb == PosEmb.ROPE:
-        cos, sin = rope_cos_sin(lengths[:, None], cfg.head_dim,
-                                cfg.rope_theta)
+    if cos is None:
+        cos, sin = positional_cos_sin(cfg, lengths[:, None])
     q, k, v = _qkv(cfg, p, x, cos, sin)
     kv_write_decode(cache, k, v, lengths)
-    kd, vd = kv_read(cache)
+    kd, vd = kv_read(cache, x.dtype)
     lens = lengths + 1
     if ring:                        # every filled slot is inside the window
         lens, window = torch.clamp(lens, max=T), 0

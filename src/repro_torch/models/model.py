@@ -12,11 +12,14 @@ Mamba-2.
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
 The slices cover the dense decoder olmo-1b needs, the attention-free
-Mamba-2 stack of mamba2-780m, and gemma2-2b's attention variants: sliding
-windows with ring-buffer caches, local/global alternation, logit softcaps,
-post-norms and scaled embeddings.  A config that uses a feature outside
-them is refused when the ``Model`` is built, naming the ROADMAP item that
-brings it, so nothing outside the slices is computed silently wrong.
+Mamba-2 stack of mamba2-780m, and the attention variants: gemma2-2b's
+sliding windows with ring-buffer caches, local/global alternation, logit
+softcaps, post-norms and scaled embeddings; starcoder2-3b's window on
+every layer, LayerNorm and GELU; qwen2-vl-2b's VLM backbone, fed token ids
+or precomputed ``embeds`` with M-RoPE ``[3, B, S]`` positions; int8 KV
+caches (nemotron-4-340b).  A config that uses a feature outside them is
+refused when the ``Model`` is built, naming the ROADMAP item that brings
+it, so nothing outside the slices is computed silently wrong.
 """
 from __future__ import annotations
 
@@ -42,13 +45,8 @@ def _unported(cfg: ModelConfig) -> str:
         return "MoE FFNs (item 7)"
     if cfg.family == Family.HYBRID or cfg.attn_every:
         return "hybrid SSM/attention stacks (item 8)"
-    if cfg.is_encdec:
-        return "encoder-decoder (item 9)"
-    if cfg.family == Family.VLM or cfg.frontend_stub or (
-            cfg.pos_emb != PosEmb.ROPE and not cfg.attention_free):
-        return "VLM embeds and non-RoPE positions (item 6)"
-    if cfg.kv_cache_dtype == "int8":
-        return "int8 KV caches (item 6)"
+    if cfg.is_encdec or cfg.pos_emb == PosEmb.LEARNED:
+        return "encoder-decoder and learned positions (item 9)"
     return ""
 
 
@@ -108,18 +106,28 @@ class Model:
                                   params["head"].float())
         return _softcap(logits, cfg.final_logit_softcap)
 
-    def _positions(self, tokens):
-        B, S = tokens.shape
-        return torch.arange(S, device=tokens.device)[None].expand(B, S)
+    def _inputs(self, params, batch):
+        """(x [B,S,d] bf16, positions): a VLM's precomputed ``embeds`` with
+        its ``positions`` ([3,B,S] or [B,S]; default arange), else the
+        embedded ``tokens`` at arange positions."""
+        if self.cfg.family == Family.VLM and "embeds" in batch:
+            x = batch["embeds"].to(torch.bfloat16)
+            positions = batch.get("positions")
+        else:
+            x = self._embed(params, batch["tokens"])
+            positions = None
+        if positions is None:
+            B, S, _ = x.shape
+            positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        return x, positions
 
     # ------------------------------------------------------------ forward
     def forward(self, params, batch):
         """Teacher-forced pass to final hidden states.  Returns (x, aux);
         aux (the MoE load-balancing loss) is zero for the dense slice."""
-        tokens = batch["tokens"]
-        x = self._embed(params, tokens)
+        x, positions = self._inputs(params, batch)
         x, _ = T.stack_forward(self.cfg, params["blocks"], x,
-                               positions=self._positions(tokens),
+                               positions=positions,
                                attn_impl=self.attn_impl)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         return x, torch.zeros((), device=x.device)
@@ -136,17 +144,16 @@ class Model:
         the cache is written in place.  Runs under inference mode itself:
         grad mode is thread-local, and the daemons' worker threads do not
         inherit the caller's."""
-        tokens = batch["tokens"]
-        B, S = tokens.shape
-        x = self._embed(params, tokens)
+        x, positions = self._inputs(params, batch)
+        B, S, _ = x.shape
         x, cache = T.stack_forward(self.cfg, params["blocks"], x,
-                                   positions=self._positions(tokens),
-                                   caches=cache, attn_impl=self.attn_impl)
+                                   positions=positions, caches=cache,
+                                   attn_impl=self.attn_impl)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         lengths = batch.get("lengths")
         if lengths is None:
             lengths = torch.full((B,), S, dtype=torch.int32,
-                                 device=tokens.device)
+                                 device=x.device)
             x_last = x[:, -1]
         else:
             x_last = x[torch.arange(B, device=x.device), lengths.long() - 1]

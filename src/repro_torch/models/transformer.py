@@ -1,5 +1,6 @@
-"""Decoder stack for the dense decoder-only and attention-free SSM families
-(with gemma2's local/global alternation, ring caches and post-norms).
+"""Decoder stack for the dense decoder-only, VLM-backbone and attention-free
+SSM families (with gemma2's local/global alternation, ring caches and
+post-norms).
 
 The stack is described by a repeating **block pattern** (``block_pattern``
 is copied from the JAX package, so both sides name the same blocks).  As
@@ -142,12 +143,13 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
 def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
                   positions, caches: Optional[List[Dict]] = None,
                   attn_impl: str = "kernel"):
-    """Full-sequence pass.  x: [B, S, d].  Returns (x, caches) — the
-    caches written in place, or None."""
+    """Full-sequence pass.  x: [B, S, d]; positions [B, S], or [3, B, S]
+    under M-RoPE.  Returns (x, caches) — the caches written in place, or
+    None."""
     pat = block_pattern(cfg)
     cos = sin = None
     if not cfg.attention_free:
-        cos, sin = L.rope_cos_sin(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = L.positional_cos_sin(cfg, positions)
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
             c = _layer(caches[j], r) if caches is not None else None
@@ -164,8 +166,7 @@ def stack_decode(cfg: ModelConfig, stacked_params: List[Dict], x, *,
     pat = block_pattern(cfg)
     cos = sin = None
     if not cfg.attention_free:
-        cos, sin = L.rope_cos_sin(lengths[:, None], cfg.head_dim,
-                                  cfg.rope_theta)
+        cos, sin = L.positional_cos_sin(cfg, lengths[:, None])
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
             x = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,

@@ -216,6 +216,44 @@ def test_flash_attention_gemma2_prefill(cuda, window):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(4400, 4096), (300, 256), (129, 40)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_starcoder2_heads(cuda, S, window, dtype):
+    """starcoder2-3b's heads (24 query over 2 KV heads of 128, G = 12)
+    under a window every layer has, S past it: its 4400-token prefill
+    against a 4096 window, and shorter cases across the 64-row tiles."""
+    rng = np.random.default_rng(S + window)
+    q = on(cuda, rng.standard_normal((1, S, 24, 128)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 2, 128)), DTYPES[dtype])
+            for _ in range(2))
+    kw = dict(scale=128 ** -0.5, window=window)
+    before = FA.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [142, 404, 891])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_qwen2_vl_heads(cuda, S, dtype):
+    """qwen2-vl-2b's heads (12 query over 2 KV heads of 128, G = 6),
+    causal, at the engine's prompt lengths."""
+    rng = np.random.default_rng(S)
+    q = on(cuda, rng.standard_normal((1, S, 12, 128)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 2, 128)), DTYPES[dtype])
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, scale=128 ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KVH,D,ps,maxp,identity", [
     (2, 4, 1, 32, 8, 3, False),
     (3, 8, 2, 64, 16, 4, False),
@@ -276,6 +314,36 @@ def test_paged_attention_split_edges(cuda, B, H, KVH, D, ps, maxp, lengths,
     torch.cuda.synchronize()
     close(got, PA.paged_attention_plain(*args, scale=D ** -0.5),
           **tol_for(dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,ps,maxp,lengths", [
+    (24, 64, 64, [4096, 715, 602, 385]),        # starcoder2's 4096-slot
+    (24, 64, 64, [4096, 4097, 1, 4095]),        # rings, at and past T
+    (12, 64, 15, [907, 715, 602, 385]),         # qwen2-vl's 960-slot cache
+    (12, 64, 15, [960, 1, 2, 959]),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_starcoder2_and_qwen2_vl_heads(cuda, H, ps, maxp,
+                                                       lengths, dtype):
+    """Decode at starcoder2-3b's heads (G = 12: the kernel takes 8 heads,
+    then 4) and qwen2-vl-2b's (G = 6), 2 KV heads of 128, over identity
+    pages of the engine's slot caches."""
+    B, KVH, D = 4, 2, 128
+    rng = np.random.default_rng(H + maxp + lengths[1])
+    q = on(cuda, rng.standard_normal((B, H, D)), DTYPES[dtype])
+    kp, vp = (on(cuda, rng.standard_normal((B * maxp, ps, KVH, D)),
+                 DTYPES[dtype]) for _ in range(2))
+    pt = torch.arange(B * maxp, dtype=torch.int32,
+                      device=cuda).view(B, maxp)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = PA.paged_attention_cuda.launches
+    got = ops.paged_attention(q, kp, vp, pt, ln, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_cuda.launches == before + 1
+    want = PA.paged_attention_plain(q, kp, vp, pt, ln, scale=D ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
 
 
 @pytest.mark.cuda
@@ -415,7 +483,7 @@ def test_reduced_gemma2_kernel_path_matches_plain_path(cuda):
     from repro_torch.configs import get_config
     from repro_torch.models import build_model
     cfg = get_config("gemma2-2b").reduced()
-    check_gemma2_kernel_path(cuda, cfg, build_model(cfg).init(0, device=cuda))
+    check_kernel_path(cuda, cfg, build_model(cfg).init(0, device=cuda))
 
 
 @pytest.mark.cuda
@@ -433,34 +501,95 @@ def test_reduced_gemma2_kernel_path_with_a_binding_softcap(cuda):
     params = build_model(cfg).init(0, device=cuda)
     for block in params["blocks"]:
         block["attn"]["wq"] = block["attn"]["wq"] * 100
-    got, ref = check_gemma2_kernel_path(cuda, cfg, params)
+    got, ref = check_kernel_path(cuda, cfg, params)
     uncapped = build_model(dataclasses.replace(cfg, attn_logit_softcap=0.0),
                            attn_impl="plain")
     with torch.inference_mode():
-        x, _ = uncapped.forward(params, {"tokens": gemma2_tokens(cuda, cfg)})
+        x, _ = uncapped.forward(params, {"tokens": model_tokens(cuda, cfg)})
         moved = (uncapped._logits(params, x)[:, 31:].float() - ref).abs()
     assert 5 * float((got - ref).abs().mean()) < float(moved.mean())
 
 
-def gemma2_tokens(cuda, cfg):
-    """The 48 tokens both reduced-gemma2 tests feed the model."""
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen2-vl-2b",
+                                  "nemotron-4-340b"])
+def test_reduced_variant_kernel_path_matches_plain_path(cuda, arch):
+    """starcoder2-3b (16-slot rings on every layer), qwen2-vl-2b (M-RoPE)
+    and nemotron-4-340b (int8 KV caches) at smoke width on the card: a
+    32-token prefill and 16 decode steps through the kernels against the
+    plain path's teacher-forced forward.  The int8 cache holds int8 values
+    with scales that are not zero, and its logits differ from the same
+    model's with bf16 caches, within the same bounds."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    params = build_model(cfg).init(0, device=cuda)
+    got, _ = check_kernel_path(cuda, cfg, params)
+    if cfg.kv_cache_dtype == "int8":
+        as_bf16 = dataclasses.replace(cfg, kv_cache_dtype="bfloat16")
+        other, _ = check_kernel_path(cuda, as_bf16, params)
+        assert not torch.equal(got[:, 1:], other[:, 1:])
+        errs = [float((got[:, i].softmax(-1) - other[:, i].softmax(-1))
+                      .abs().max()) for i in range(got.shape[1])]
+        assert np.median(errs) < 0.05, errs
+
+
+@pytest.mark.cuda
+def test_reduced_qwen2_vl_embeds_on_the_card(cuda):
+    """qwen2-vl-2b at smoke width fed embeds with [3, B, S] positions whose
+    rows differ (a 4 x 4 patch grid at t = 4, h = 4 + row, w = 4 + col):
+    the kernel path's prefill matches the plain path's, and differs from a
+    prefill at replicated positions by more than that."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("qwen2-vl-2b").reduced()
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    emb = torch.randn(2, 32, cfg.d_model, generator=gen,
+                      device=cuda).bfloat16()
+    flat = torch.arange(32, device=cuda)[None, None].expand(3, 2, 32)
+    pos = flat.clone()
+    patch = torch.arange(16, device=cuda)
+    pos[0, :, 4:20] = 4
+    pos[1, :, 4:20] = 4 + patch // 4
+    pos[2, :, 4:20] = 4 + patch % 4
+    outs = []
+    for model, p in ((kernel, pos), (plain, pos), (kernel, flat)):
+        cache = model.init_cache(2, 32, device=cuda)
+        lg, _, _ = model.prefill(params, {"embeds": emb, "positions": p},
+                                 cache)
+        outs.append(lg.float())
+    err = float((outs[0] - outs[1]).abs().mean())
+    assert float((outs[0].softmax(-1) - outs[1].softmax(-1)).abs().max()) \
+        < 0.05
+    assert float((outs[2] - outs[0]).abs().mean()) > 5 * err
+
+
+def model_tokens(cuda, cfg):
+    """The 48 tokens the reduced-model tests feed the model."""
     return torch.from_numpy(np.random.default_rng(1).integers(
         0, cfg.vocab_size, (2, 48))).to(cuda)
 
 
-def check_gemma2_kernel_path(cuda, cfg, params):
+def check_kernel_path(cuda, cfg, params):
     """A 32-token prefill and 16 decode steps on the kernel path against
-    the plain path's teacher-forced forward; returns both paths' logits
-    at the 17 positions compared, as fp32 [2, 17, V]."""
+    the plain path's teacher-forced forward (a windowed layer's 16-slot
+    ring wraps in the prefill); returns both paths' logits at the 17
+    positions compared, as fp32 [2, 17, V]."""
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import block_pattern, num_repeats
     kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
-    toks = gemma2_tokens(cuda, cfg)
+    toks = model_tokens(cuda, cfg)
     with torch.inference_mode():
         x, _ = plain.forward(params, {"tokens": toks})
         ref = plain._logits(params, x)
     cache = kernel.init_cache(2, 48, device=cuda)
-    assert [c["k"].shape[2] for c in cache] == [16, 48]
-    before = ops.launch_counts()
+    assert [c["k"].shape[2] for c in cache] == [
+        min(48, d.window) if d.window else 48 for d in block_pattern(cfg)]
+    ops.reset_launch_counts()
     lg, cache, _ = kernel.prefill(params, {"tokens": toks[:, :32]}, cache)
     got = [lg]
     for t in range(32, 48):
@@ -468,11 +597,19 @@ def check_gemma2_kernel_path(cuda, cfg, params):
                                   torch.full((2,), t, dtype=torch.int32,
                                              device=cuda))
         got.append(lg)
-    after = ops.launch_counts()
-    assert after["flash_attention"] - before["flash_attention"] == \
-        cfg.num_layers
-    assert after["paged_attention"] - before["paged_attention"] == \
-        16 * cfg.num_layers
+    assert ops.launch_counts()["flash_attention"] == cfg.num_layers
+    assert ops.launch_counts()["paged_attention"] == 16 * cfg.num_layers
+    # by kind: each layer's flash launch under its window, each of its
+    # decode steps over its own cache's slots
+    by_window, by_capacity = {}, {}
+    for d in block_pattern(cfg):
+        T = min(48, d.window) if d.window else 48
+        by_window[d.window] = by_window.get(d.window, 0) + num_repeats(cfg)
+        by_capacity[T] = by_capacity.get(T, 0) + 16 * num_repeats(cfg)
+    assert {w: n for w, n in FA.flash_attention_cuda.window_launches.items()
+            if n} == by_window
+    assert {T: n for T, n in PA.paged_attention_cuda.capacity_launches
+            .items() if n} == by_capacity
     got, ref = torch.stack(got, 1).float(), ref[:, 31:].float()
     errs = [float((got[:, i].softmax(-1) - ref[:, i].softmax(-1))
                   .abs().max()) for i in range(got.shape[1])]

@@ -1,10 +1,13 @@
 """The port's RealEngine: every mode serves the same tokens as a sequential
 greedy run of the port's own model, and that run agrees with the JAX
-package's ``tests/test_engine.py::reference_outputs``.  All three of the
+package's ``tests/test_engine.py::reference_outputs``.  All six of the
 port's models are served at smoke width: olmo-1b (KV caches), mamba2-780m
-(conv and SSM state caches, the SSD scan's plain version on the CPU) and
+(conv and SSM state caches, the SSD scan's plain version on the CPU),
 gemma2-2b (a 16-slot ring cache on its local layers beside its global
-layers' full cache, softcaps and post-norms).
+layers' full cache, softcaps and post-norms), starcoder2-3b (16-slot rings
+on every layer, LayerNorm, GELU), qwen2-vl-2b (the VLM backbone on token
+ids: M-RoPE with t = h = w) and nemotron-4-340b (int8 KV caches with fp32
+scales, squared ReLU).
 
 Engine against the port's reference: token for token (the engine runs the
 same eager torch model, so nothing may differ).  Port against JAX:
@@ -25,7 +28,8 @@ from repro.models import build_model as jax_build_model
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.models import build_model
-from repro_torch.serving.engine import RealEngine, _pack_cache, _unpack_cache
+from repro_torch.serving.engine import (RealEngine, _insert_slot,
+                                        _pack_cache, _unpack_cache)
 from repro_torch.serving.request import Request
 
 torch.set_num_threads(2)
@@ -56,6 +60,12 @@ def mamba_setup():
 @pytest.fixture(scope="module")
 def gemma_setup():
     return _setup("gemma2-2b")
+
+
+@pytest.fixture(scope="module", params=["starcoder2-3b", "qwen2-vl-2b",
+                                        "nemotron-4-340b"])
+def variant_setup(request):
+    return _setup(request.param)
 
 
 # mamba2's prompts span two scan chunks of 32 (the second one ragged)
@@ -118,6 +128,18 @@ def mamba_reference(mamba_setup):
 def gemma_reference(gemma_setup):
     cfg, model, params, _, _ = gemma_setup
     return reference_outputs(model, params, gemma_requests(cfg))
+
+
+def variant_requests(cfg):
+    """A windowed model's traffic crosses its window (gemma2's lengths);
+    the others take mk_requests' 12-token prompts."""
+    return gemma_requests(cfg) if cfg.sliding_window else mk_requests(cfg)
+
+
+@pytest.fixture(scope="module")
+def variant_reference(variant_setup):
+    cfg, model, params, _, _ = variant_setup
+    return reference_outputs(model, params, variant_requests(cfg))
 
 
 def run_engine(setup, reqs, **kw):
@@ -270,3 +292,62 @@ def test_gemma2_engine_matches_reference(gemma_setup, gemma_reference,
 def test_gemma2_reference_agrees_with_jax(gemma_setup, gemma_reference):
     _agrees_with_jax(gemma_setup, gemma_reference,
                      gemma_requests(gemma_setup[0]))
+
+
+@pytest.mark.parametrize("mode", ["passthrough", "static_colocate",
+                                  "dynamic_pd", "disagg"])
+def test_variant_engine_matches_reference(variant_setup, variant_reference,
+                                          mode):
+    """starcoder2-3b, qwen2-vl-2b and nemotron-4-340b served in every mode:
+    slot inserts and the disagg transfer carry starcoder2's rings (one
+    prompt past the window) and nemotron's int8 values with their fp32
+    scales."""
+    cfg = variant_setup[0]
+    reqs = variant_requests(cfg)
+    eng, res = run_engine(variant_setup, reqs, mode=mode)
+    assert res["completed"] == len(reqs) and res["failed"] == 0
+    assert [r.output_tokens for r in reqs] == variant_reference
+    cache = eng.replicas[0].slot_cache
+    if cfg.sliding_window:
+        assert [c["k"].shape[2] for c in cache] == [16]
+    if cfg.kv_cache_dtype == "int8":
+        assert [c["k"].dtype for c in cache] == [torch.int8]
+    if mode != "passthrough":
+        for dev in eng.session.stats().values():
+            assert dev["buffers"] == 0 and dev["allocated_bytes"] == 0
+
+
+def test_variant_reference_agrees_with_jax(variant_setup, variant_reference):
+    _agrees_with_jax(variant_setup, variant_reference,
+                     variant_requests(variant_setup[0]))
+
+
+def test_int8_cache_packs_and_inserts_bit_for_bit():
+    """An int8 cache (int8 values, fp32 scales) through the disagg
+    transfer's uint8 packing and into a slot of the slot cache: every leaf
+    keeps its dtype and bits, and the other slots stay untouched."""
+    cfg = get_config("nemotron-4-340b").reduced()
+    model = build_model(cfg)
+    one = model.init_cache(1, 8, device="cpu")
+    gen = torch.Generator().manual_seed(3)
+    for layer in one:
+        layer["k"].copy_(torch.randint(-127, 128, layer["k"].shape,
+                                       generator=gen))
+        layer["v"].copy_(torch.randint(-127, 128, layer["v"].shape,
+                                       generator=gen))
+        layer["k_scale"].copy_(torch.rand(layer["k_scale"].shape,
+                                          generator=gen))
+        layer["v_scale"].copy_(torch.rand(layer["v_scale"].shape,
+                                          generator=gen))
+    blob, keys, spec = _pack_cache(one)
+    assert keys == [["k", "k_scale", "v", "v_scale"]]
+    assert [dt for _, dt in spec] == [torch.int8, torch.float32,
+                                      torch.int8, torch.float32]
+    back = _unpack_cache(blob, keys, spec, torch.device("cpu"))
+    full = model.init_cache(3, 8, device="cpu")
+    _insert_slot(full, back, 1)
+    for a, b in zip(one, full):
+        for k in a:
+            assert b[k].dtype == a[k].dtype
+            assert torch.equal(b[k][:, 1], a[k][:, 0])
+            assert not b[k][:, 0].any() and not b[k][:, 2].any()

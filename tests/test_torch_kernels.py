@@ -300,6 +300,24 @@ def test_ops_dispatch_cpu_goes_to_plain_versions():
                                    "paged_attention": 0, "ssd_scan": 0}
 
 
+def test_reset_zeroes_the_counts_by_kind():
+    """Each wrapper keeps counts by kind beside ``.launches`` (flash by
+    window, paged by slot-cache capacity, the SSD scan by variant); the
+    reset zeroes them all and keeps the SSD scan's variant names."""
+    assert set(ops.KIND_COUNTS) == set(ops.CUDA_WRAPPERS)
+    for name, fn in ops.CUDA_WRAPPERS.items():
+        fn.launches = 3
+        getattr(fn, ops.KIND_COUNTS[name])[7] = 3
+    ops.reset_launch_counts()
+    for name, fn in ops.CUDA_WRAPPERS.items():
+        assert fn.launches == 0
+        kinds = getattr(fn, ops.KIND_COUNTS[name])
+        assert set(kinds.values()) == {0}
+        del kinds[7]
+    assert set(ops.CUDA_WRAPPERS["ssd_scan"].variant_launches) == {
+        "wgmma", "cuda_core"}
+
+
 def test_cuda_wrappers_refuse_cpu_tensors():
     """The CUDA wrappers check their inputs before any build or launch."""
     _, (qt, kt, vt) = zip(*flash_case(np.random.default_rng(1), 1, 20, 4, 2,

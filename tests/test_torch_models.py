@@ -373,19 +373,22 @@ def test_stack_cache_layout(cfgs):
     (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2), "item 8"),
     (dict(attn_every=2), "item 8"),
     (dict(encoder_layers=2, family=Family.AUDIO), "item 9"),
-    (dict(family=Family.VLM), "item 6"),
-    (dict(pos_emb=PosEmb.MROPE), "item 6"),
-    (dict(kv_cache_dtype="int8"), "item 6"),
-    # item 6's variants that gemma2-2b brought: no longer refused
+    (dict(pos_emb=PosEmb.LEARNED), "item 9"),
+    # item 6's variants (gemma2-2b, starcoder2-3b, qwen2-vl-2b and
+    # nemotron-4-340b brought them): no longer refused
+    (dict(family=Family.VLM), None),
+    (dict(pos_emb=PosEmb.MROPE), None),
+    (dict(kv_cache_dtype="int8"), None),
     (dict(sliding_window=16), None),
     (dict(local_global_alternating=True, sliding_window=16), None),
     (dict(use_post_norm=True), None),
 ])
 def test_build_model_refuses_unported_features(cfgs, change, item):
     """A feature outside the slices is refused, naming its ROADMAP item.
-    The sliding window, local/global alternation and post-norm (item None)
-    are ported: such a config builds, and its model runs a prefill past
-    the window and one decode step."""
+    The VLM family, M-RoPE, int8 KV caches, the sliding window,
+    local/global alternation and post-norm (item None) are ported: such a
+    config builds, and its model runs a prefill past the window and one
+    decode step."""
     cfg = dataclasses.replace(cfgs[1], **change)
     if item is not None:
         with pytest.raises(NotImplementedError, match=item):
