@@ -20,17 +20,19 @@ fallback):
             its own heads, windows and logit softcap (gemma2-2b, G = 2 at
             head_dim 256; starcoder2-3b, G = 12 under a window on every
             layer; qwen2-vl-2b, G = 6; the reduced nemotron-4-340b, head_dim
-            32), with scores scaled past a softcap so a kernel that dropped
-            it would fail.  The library calls are SDPA (a window as a
+            32; mixtral-8x7b, G = 4 under a window on every layer), with
+            scores scaled past a softcap so a kernel that dropped it would
+            fail.  The library calls are SDPA (a window as a
             boolean mask) and, under a window or a softcap, flex_attention
             (the window as a block mask, the cap as score_mod), each held
             against the plain version first; the fastest is the library
             call, the others stand beside it (SDPA without a softcap is
             timed apart under one: a different function).
 Then for each model, olmo-1b, mamba2-780m, gemma2-2b, starcoder2-3b and
-qwen2-vl-2b at full published width, and nemotron-4-340b at its reduced()
-width (int8 KV caches kept; the full model does not fit one card), random
-weights from --seed:
+qwen2-vl-2b at full published width, nemotron-4-340b at its reduced()
+width (int8 KV caches kept; the full model does not fit one card), and
+mixtral-8x7b at full layer width cut to 8 of its 32 layers (CUT; 46.7 B
+parameters do not fit one card), random weights from --seed:
 4. model    a prefill plus 16 decode steps on the kernel path against the
             plain path, teacher-forced (a windowed model: a prompt 64
             tokens past its window; under a logit softcap, again with the
@@ -39,7 +41,11 @@ weights from --seed:
             must move the logits; an int8 KV cache, also on starcoder2-3b
             and qwen2-vl-2b at full width: int8 values, scales not zero,
             logits apart from the same model's with bf16 caches but within
-            the gate); then a prefill of the longest prompt and one decode
+            the gate; an MoE model under the MoE bounds of
+            tests/test_models_decode.py, and one full-width MoE layer's
+            kernel dispatch against the plain one-hot dispatch, prefill and
+            decode, timed, with the experts its routing reached); then a
+            prefill of the longest prompt and one decode
             step at the engine's shape, each timed and traced with
             torch.profiler (device busy share, launches, costliest
             kernels), the decode step again with int8 caches where the
@@ -96,10 +102,13 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 CAP_BOOST = {torch.bfloat16: 30.0, torch.float32: 4.0}
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b", "starcoder2-3b",
-         "qwen2-vl-2b", "nemotron-4-340b")
+         "qwen2-vl-2b", "nemotron-4-340b", "mixtral-8x7b")
 # served at reduced() width: nemotron-4-340b (int8 KV caches) is far too
 # large for one card, and its head_dim of 192 is in neither kernel
 REDUCED = ("nemotron-4-340b",)
+# served at full layer width with fewer layers: mixtral-8x7b's 32 layers
+# hold 46.7 B parameters (93.4 GB in bf16); 8 of them hold 11.9 B
+CUT = {"mixtral-8x7b": 8}
 # full-width models whose int8 KV cache is also run in the model phase
 # (checked against bf16 caches, and its decode step traced): head_dim 128,
 # starcoder2-3b's 4096-slot rings and qwen2-vl-2b's slot caches
@@ -115,6 +124,10 @@ N_REQUESTS = 8
 MAX_NEW = 32
 MODEL_DECODE_STEPS = 16
 TIE_EPS = 0.02                # tests/test_models_decode.py::agree_step
+# an MoE model's gate, tests/test_models_decode.py:71-74: median softmax
+# error below 0.05 and tie-aware agreement at 0.7 of the positions or more
+# (a bf16 difference can flip a borderline top-k pick, and so an expert)
+MOE_MIN_AGREE = 0.7
 SSM_DECODE_EXACT = 5e-3       # tests/test_models_decode.py, mamba2
 MODES = ("passthrough", "static_colocate", "dynamic_pd", "disagg")
 # the PyTorch calls that may compute a kernel's function (kernel_times)
@@ -850,20 +863,36 @@ def prefill_decode(model, params, toks, P: int, batch=None):
             1e3 * (t2 - t1) / (S - P), cache)
 
 
-def compare_logits(what: str, got, ref) -> float:
-    """Print and gate: max softmax error below 0.05 and tie-aware argmax
-    agreement (tests/test_models_decode.py)."""
+def compare_logits(what: str, got, ref, moe: bool = False) -> float:
+    """Print and gate logits [B, n, V]: max softmax error below 0.05 and
+    tie-aware argmax agreement at every position
+    (tests/test_models_decode.py); an MoE model (``moe``) under that
+    file's MoE bounds: the median over positions of each one's softmax
+    error below 0.05, tie-aware agreement at MOE_MIN_AGREE of them."""
     p_got, p_ref = got.softmax(-1), ref.softmax(-1)
     prob_err = max_err(p_got, p_ref)
     a_got, a_ref = got.argmax(-1), ref.argmax(-1)
     p_top = p_ref.gather(-1, a_ref[..., None])[..., 0]
     p_picked = p_ref.gather(-1, a_got[..., None])[..., 0]
-    tie_agree = bool(((a_got == a_ref) | (p_top - p_picked < TIE_EPS)).all())
+    agree = ((a_got == a_ref) | (p_top - p_picked < TIE_EPS)).all(0)
+    tie_agree = bool(agree.all())
     exact = float((a_got == a_ref).float().mean())
     print(f"  model: {what}: max softmax err {prob_err:.3g} (bound 0.05; "
           f"prefill position {max_err(p_got[:, 0], p_ref[:, 0]):.3g}), "
           f"logits max abs diff {max_err(got, ref):.3g}, exact argmax "
           f"agreement {exact:.3f}, tie-aware agreement {tie_agree}")
+    if moe:
+        per_pos = (p_got.float() - p_ref.float()).abs().amax(dim=(0, 2))
+        median = float(per_pos.median())
+        share = float(agree.float().mean())
+        print(f"  model: {what}: MoE bounds: median softmax err {median:.3g} "
+              f"(bound 0.05), tie-aware agreement at {share:.3f} of the "
+              f"positions (bound {MOE_MIN_AGREE})")
+        require(median < 0.05, f"model: {what}: median softmax error "
+                               f"{median}")
+        require(share >= MOE_MIN_AGREE, f"model: {what}: tie-aware "
+                                        f"agreement {share}")
+        return prob_err
     require(prob_err < 0.05, f"model: {what}: softmax error {prob_err}")
     require(tie_agree, f"model: {what}: argmax disagrees beyond tie_eps")
     return prob_err
@@ -873,8 +902,9 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
     """The kernel path's prefill of B x P tokens plus decode against the
     plain path's teacher-forced forward (the gate of
     tests/test_models_decode.py), and against the plain path's own prefill
-    plus decode (the same steps, so only the kernels differ).  The fp32
-    logits are built only at the positions compared."""
+    plus decode (the same steps, so only the kernels, and an MoE model's
+    dispatch, differ).  The plain forward routes dropless, as prefill and
+    decode do.  The fp32 logits are built only at the positions compared."""
     from repro_torch.models import build_model
     kernel = build_model(cfg)
     plain = build_model(cfg, attn_impl="plain")
@@ -883,7 +913,7 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
     toks = torch.tensor(rng.integers(0, cfg.vocab_size, (B, S)),
                         dtype=torch.long, device="cuda")
     with torch.inference_mode():
-        x, _ = plain.forward(params, {"tokens": toks})
+        x, _ = plain.forward(params, {"tokens": toks}, dropless=True)
         ref = plain._logits(params, x[:, P - 1:])          # [B, 17, V]
     got, prefill_ms, step_ms, _ = prefill_decode(kernel, params, toks, P)
     print(f"  model: kernel path, host clock to a synchronize: prefill "
@@ -893,8 +923,9 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
     require(tuple(got.shape) == (B, S - P + 1, cfg.vocab_size),
             f"model: logits shape {tuple(got.shape)}")
     steps = f"{B}x{P} prompt + {MODEL_DECODE_STEPS} decode steps"
+    moe = cfg.moe is not None
     prob_err = compare_logits(
-        f"{steps}, kernel path vs plain path teacher-forced", got, ref)
+        f"{steps}, kernel path vs plain path teacher-forced", got, ref, moe)
     if cfg.attention_free:
         where = "within" if prob_err < SSM_DECODE_EXACT else "above"
         print(f"  model: max softmax err {prob_err:.3g} is {where} the "
@@ -902,7 +933,7 @@ def check_model(cfg, params, seed: int, B: int = 2, P: int = 256):
               f"test_mamba2_decode_exact (reported, not gated)")
     same = prefill_decode(plain, params, toks, P)[0]
     compare_logits(f"{steps}, kernel path vs plain path, the same steps",
-                   got, same)
+                   got, same, moe)
 
 
 def check_softcap_binds(cfg, params, seed: int, boost: float = 100.0,
@@ -1060,6 +1091,82 @@ def check_int8(cfg, params, seed: int, B: int = 2, P: int = 256) -> None:
                       "logits: the cache was not quantized")
     compare_logits(f"{B}x{P} prompt + {MODEL_DECODE_STEPS} decode steps, "
                    f"int8 KV cache vs bf16 KV cache", got, other)
+
+
+def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
+    """The model's first MoE layer on the card, at its full width: the
+    kernel dispatch (sorted per-expert products; one-token steps batched
+    over the experts) against the plain one-hot dispatch, dropless, on a
+    prefill of ``prompt_len`` unit-RMS rows (the norm before the layer
+    gives such rows) and on a decode step of MAX_NUM_SEQS rows
+    (chunk_size=1): y within 2e-2 of the plain output's largest magnitude
+    (the experts' outputs reach the hundreds, where a bf16 step is a unit
+    or more) and 1e-2 of its norm, the loss within 2e-5.  The prefill's
+    routing must reach every expert.  Both dispatches are timed (CUDA
+    events around back-to-back calls; the prefill's kernel dispatch reads
+    its expert counts to the host once a call) beside the bound of the
+    expert products the routing asks for."""
+    from repro_torch.models import moe as MOE
+    from repro_torch.models.transformer import _layer
+    p = _layer(params["blocks"][0], 0)["moe"]
+    E, k, d, f = (cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model,
+                  cfg.d_ff)
+    mats = 3 if "w_gate" in p else 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 7)
+    for phase, B, S in (("prefill", 1, prompt_len),
+                        ("decode", MAX_NUM_SEQS, 1)):
+        x = torch.randn(B, S, d, generator=gen, device="cuda").bfloat16()
+        kw = dict(dropless=True, chunk_size=1 if S == 1 else 0)
+
+        def kernel():
+            return MOE.apply_moe(cfg, p, x, **kw)
+
+        def plain():
+            return MOE.apply_moe(cfg, p, x, attn_impl="plain", **kw)
+
+        with torch.inference_mode():
+            (y, aux), (y_ref, aux_ref) = kernel(), plain()
+            idx = MOE.route(cfg, p, x, S * k).idx
+            slots = torch.bincount(idx.reshape(-1), minlength=E).tolist()
+            torch.cuda.synchronize()
+            ms = time_ms(kernel, 10)
+            plain_ms = time_ms(plain, 3, warmup=1)
+        scale = float(y_ref.float().abs().max())
+        err = max_err(y, y_ref) / scale
+        rel = rel_err(y, y_ref)
+        name = f"moe {cfg.name} layer 0 {phase} {B}x{S}"
+        require(bool(torch.isfinite(y).all()) and y.shape == x.shape,
+                f"{name}: output {tuple(y.shape)}, not finite or not "
+                f"{tuple(x.shape)}")
+        require(bool(torch.allclose(y.float() / scale, y_ref.float() / scale,
+                                    rtol=TOL[torch.bfloat16],
+                                    atol=TOL[torch.bfloat16]))
+                and rel < REL_TOL[torch.bfloat16],
+                f"{name}: kernel dispatch disagrees with the one-hot one "
+                f"({err:.3g} of the output's largest magnitude, {rel:.3g} "
+                f"of its norm)")
+        require(abs(float(aux) - float(aux_ref))
+                <= TOL[torch.float32] * (1 + abs(float(aux_ref))),
+                f"{name}: loss {float(aux)!r} against {float(aux_ref)!r}")
+        reached = sum(1 for n in slots if n)
+        if phase == "prefill":
+            require(reached == E, f"{name}: routing reached only {reached} "
+                                  f"of {E} experts ({slots})")
+        # the routed slots' products, and each reached expert's weights
+        # read once (x read and y written besides)
+        flops = 2.0 * mats * d * f * B * S * k
+        nbytes = reached * mats * d * f * 2 + 2 * x.numel() * 2
+        bound_ms, bound_by = bound(flops, nbytes)
+        print(f"[{name}] (d_model {d}, {E} experts of d_ff {f}, "
+              f"top-{k}, dropless): kernel dispatch vs plain one-hot "
+              f"dispatch: max_abs_err {err:.3g} of the output's largest "
+              f"magnitude {scale:.4g}, rel_err {rel:.3g}, loss "
+              f"{float(aux):.6g} vs {float(aux_ref):.6g}; slots per expert "
+              f"{slots} ({reached} of {E} reached); ms={ms!r} "
+              f"plain_ms={plain_ms!r} bound_ms={bound_ms!r} ({bound_by}); "
+              f"x{cfg.num_layers} layers: ms={ms * cfg.num_layers!r} "
+              f"plain_ms={plain_ms * cfg.num_layers!r}")
 
 
 def print_trace(prof, per: int, host_ms: float, what: str):
@@ -1325,8 +1432,9 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     from repro_torch.models import build_model
-    cfgs = [get_config(a).reduced() if a in REDUCED else get_config(a)
-            for a in ARCHS]
+    cfgs = [get_config(a).reduced() if a in REDUCED
+            else dataclasses.replace(get_config(a), num_layers=CUT[a])
+            if a in CUT else get_config(a) for a in ARCHS]
     # the prompt lengths come first from the seed: the same for every vocab
     traffic = {cfg.name: engine_traffic(
         args.seed, cfg.vocab_size,
@@ -1362,7 +1470,10 @@ def main() -> int:
         params = build_model(cfg).init(args.seed, device="cuda")
         n_params = sum(t.numel() for t in _leaves(params))
         width = ("REDUCED width (reduced(): a cut, not the published model)"
-                 if arch in REDUCED else "full width")
+                 if arch in REDUCED else
+                 f"full layer width, {cfg.num_layers} of "
+                 f"{get_config(arch).num_layers} layers (a cut, not the "
+                 f"published model)" if arch in CUT else "full width")
         print(f"[model] {cfg.name} {width}, {n_params} parameters, "
               f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
               f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
@@ -1380,6 +1491,8 @@ def main() -> int:
             check_mrope(cfg, params, args.seed)
         if cfg.kv_cache_dtype == "int8" or arch in INT8_AT_WIDTH:
             check_int8(cfg, params, args.seed, **shape)
+        if cfg.moe is not None:
+            check_moe_layer(cfg, params, max(lens), args.seed)
         profile_prefill(cfg, params, max(lens), args.seed)
         step_ms, busy_ms = profile_decode(cfg, params, lens, max_len)
         if arch in INT8_AT_WIDTH:

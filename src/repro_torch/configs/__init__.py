@@ -10,7 +10,9 @@ from repro_torch.configs.base import (Activation, Family, ModelConfig, Norm,
 
 _ARCH_MODULES: Dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
+    "grok-1-314b": "repro_torch.configs.grok_1_314b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
+    "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",

@@ -4,7 +4,9 @@
         --requests 16 --rate 4
 
 Runs the model at its full published width on one CUDA card by default;
-``--device cpu --reduced`` runs the smoke-test width on the CPU.  The
+``--device cpu --reduced`` runs the smoke-test width on the CPU.
+``--layers N`` cuts the stack to its first N layers at full width (a
+model too large for one card, such as mixtral-8x7b, served as a cut).  The
 engine opens a ``repro_torch.core.connect`` session; ``--show-session``
 prints the session's per-device handle/memory accounting after the run.
 (The JAX launcher's ``--sim`` cluster simulation is not part of the port.)
@@ -18,7 +20,9 @@ def run_real(arch: str, mode: str, n_requests: int, rate: float,
              prompt_len: int = 16, max_new: int = 16,
              max_num_seqs: int = 4, seed: int = 0, verbose: bool = True,
              show_session: bool = False, policy: str = "",
-             device="cuda", reduced: bool = False):
+             device="cuda", reduced: bool = False, layers: int = 0):
+    import dataclasses
+
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -29,6 +33,8 @@ def run_real(arch: str, mode: str, n_requests: int, rate: float,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = build_model(cfg)
     params = model.init(seed, device=device)
     rng = np.random.default_rng(seed)
@@ -71,10 +77,12 @@ def main():
                     help="cuda (default) or cpu")
     ap.add_argument("--reduced", action="store_true",
                     help="the config's smoke-test width (for the CPU)")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve only the first N layers (a depth cut)")
     args = ap.parse_args()
     run_real(args.arch, args.mode, args.requests, args.rate,
              show_session=args.show_session, policy=args.policy,
-             device=args.device, reduced=args.reduced)
+             device=args.device, reduced=args.reduced, layers=args.layers)
 
 
 if __name__ == "__main__":

@@ -41,7 +41,7 @@ def dense_param(gen: torch.Generator, shape, *, device, lead=(),
     scale = 1.0 / math.sqrt(max(fan, 1))
     x = torch.randn((*lead, *shape), generator=gen, device=device,
                     dtype=torch.float32)
-    return (x * scale).to(dtype)
+    return x.mul_(scale).to(dtype)
 
 
 def embed_param(gen: torch.Generator, shape, *, device,

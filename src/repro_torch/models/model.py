@@ -1,11 +1,11 @@
-"""Model API for the port's slices: the dense decoder and attention-free
-Mamba-2.
+"""Model API for the port's slices: the dense decoder, Mixture-of-Experts
+decoders and attention-free Mamba-2.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are functions of
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
-    forward(params, batch)          -> (hidden [B,S,d], aux)  (teacher-forced)
+    forward(params, batch, dropless=) -> (hidden [B,S,d], aux) (teacher-forced)
     init_cache(B, max_len, device=) -> cache (list of stacked K/V dicts,
                                        or conv/ssm state dicts for Mamba)
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
@@ -17,7 +17,9 @@ sliding windows with ring-buffer caches, local/global alternation, logit
 softcaps, post-norms and scaled embeddings; starcoder2-3b's window on
 every layer, LayerNorm and GELU; qwen2-vl-2b's VLM backbone, fed token ids
 or precomputed ``embeds`` with M-RoPE ``[3, B, S]`` positions; int8 KV
-caches (nemotron-4-340b).  A config that uses a feature outside them is
+caches (nemotron-4-340b); and the MoE FFNs of mixtral-8x7b and grok-1-314b
+(top-k routing with per-row expert capacity, dropless in prefill and
+decode).  A config that uses a feature outside them is
 refused when the ``Model`` is built, naming the ROADMAP item that brings
 it, so nothing outside the slices is computed silently wrong.
 """
@@ -41,8 +43,6 @@ def _softcap(x, cap: float):
 def _unported(cfg: ModelConfig) -> str:
     """The first config feature outside the slice, with its ROADMAP item
     (queue 1), or ''."""
-    if cfg.moe is not None:
-        return "MoE FFNs (item 7)"
     if cfg.family == Family.HYBRID or cfg.attn_every:
         return "hybrid SSM/attention stacks (item 8)"
     if cfg.is_encdec or cfg.pos_emb == PosEmb.LEARNED:
@@ -54,8 +54,9 @@ def _unported(cfg: ModelConfig) -> str:
 class Model:
     cfg: ModelConfig
     # "kernel" | "plain": the hand-written kernels (prefill and decode
-    # attention, the SSD scan) or the JAX model's own plain versions; see
-    # models/layers.py and models/mamba2.py
+    # attention, the SSD scan) and the sorted MoE dispatch, or the JAX
+    # model's own plain versions; see models/layers.py, models/mamba2.py
+    # and models/moe.py
     attn_impl: str = "kernel"
 
     def __post_init__(self):
@@ -122,15 +123,17 @@ class Model:
         return x, positions
 
     # ------------------------------------------------------------ forward
-    def forward(self, params, batch):
-        """Teacher-forced pass to final hidden states.  Returns (x, aux);
-        aux (the MoE load-balancing loss) is zero for the dense slice."""
+    def forward(self, params, batch, *, dropless: bool = False):
+        """Teacher-forced pass to final hidden states.  Returns (x, aux):
+        aux is the MoE blocks' summed load-balancing loss (zero without
+        MoE).  dropless=True routes without overflow (inference)."""
         x, positions = self._inputs(params, batch)
-        x, _ = T.stack_forward(self.cfg, params["blocks"], x,
-                               positions=positions,
-                               attn_impl=self.attn_impl)
+        x, _, aux = T.stack_forward(self.cfg, params["blocks"], x,
+                                    positions=positions,
+                                    attn_impl=self.attn_impl,
+                                    dropless=dropless)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
-        return x, torch.zeros((), device=x.device)
+        return x, aux
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, *, device="cuda"):
@@ -146,9 +149,10 @@ class Model:
         inherit the caller's."""
         x, positions = self._inputs(params, batch)
         B, S, _ = x.shape
-        x, cache = T.stack_forward(self.cfg, params["blocks"], x,
-                                   positions=positions, caches=cache,
-                                   attn_impl=self.attn_impl)
+        x, cache, _ = T.stack_forward(self.cfg, params["blocks"], x,
+                                      positions=positions, caches=cache,
+                                      attn_impl=self.attn_impl,
+                                      dropless=True)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         lengths = batch.get("lengths")
         if lengths is None:
@@ -170,9 +174,9 @@ class Model:
         its slot cache while a decode is in flight (its
         ``_fill_slots_locked`` returns early while ``decode_inflight``)."""
         x = self._embed(params, tokens[:, None])
-        x, cache = T.stack_decode(self.cfg, params["blocks"], x,
-                                  lengths=lengths, caches=cache,
-                                  attn_impl=self.attn_impl)
+        x, cache, _ = T.stack_decode(self.cfg, params["blocks"], x,
+                                     lengths=lengths, caches=cache,
+                                     attn_impl=self.attn_impl)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         return self._logits(params, x[:, 0]), cache
 

@@ -1,0 +1,224 @@
+"""Mixture-of-Experts layer: top-k routing with per-row expert capacity.
+
+The twin of ``repro/models/moe.py``: the same routing, step by step, as
+plain functions on tensors.  Router logits in fp32, softmax, top-k (ties to
+the lower expert index, as ``lax.top_k``), renormalized gates; the k slots
+of each token flattened to a pseudo-sequence ``t = s_i * k + j``; each
+slot's capacity position counted along its batch row; slots past the
+capacity ``C`` dropped; the Switch load-balancing loss.  The sequence is
+cut into chunks, each routed alone; one pass over every chunk's batch rows
+stands in for ``lax.scan`` (the plain dispatch then loops over the
+chunks).
+
+Two dispatches compute the same function:
+
+* ``attn_impl="plain"``: the reference's GShard formulation, one-hot
+  ``[B, s*k, E, C]`` dispatch and combine products around a ``[B, E, C, d]``
+  expert batch.  Dropless routing makes ``C = s*k``, so it runs every expert
+  over ``E*C`` rows, ``E`` times the work the routed slots need.
+* ``attn_impl="kernel"`` (the default): no one-hot product.  A prefill
+  gathers the kept slots of every chunk at once, sorted by expert, runs one
+  product per expert over its contiguous rows (the expert counts are read to
+  the host once a call) and writes each result, times its gate, back to its
+  slot.  A one-token step (``chunk_size=1``, decode) runs every expert on
+  every token in one product batched over the experts and gathers the
+  picked ones: it reads nothing back to the host.
+
+Neither is a hand-written kernel: the JAX package computes its expert
+products as plain einsums, outside any Pallas kernel.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, NamedTuple, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import Activation, ModelConfig
+from repro_torch.models import layers as L
+
+
+def moe_params(cfg: ModelConfig, gen: torch.Generator, *, device,
+               lead=()) -> Dict:
+    """``router`` fp32 [d, E]; bf16 ``w_up``/``w_gate`` [E, d, f] and
+    ``w_down`` [E, f, d].  As in the JAX twin, ``dense_param`` takes its fan
+    from the shape's first axis, so ``w_up`` and ``w_gate`` are scaled by
+    1/sqrt(E), ``w_down`` by 1/sqrt(f)."""
+    assert cfg.moe is not None
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
+    kw = dict(device=device, lead=lead)
+    p = {
+        "router": L.dense_param(gen, (d, e), dtype=torch.float32, **kw),
+        "w_up": L.dense_param(gen, (e, d, f), **kw),
+        "w_down": L.dense_param(gen, (e, f, d), fan_in=f, **kw),
+    }
+    if cfg.activation in (Activation.SWIGLU, Activation.GEGLU):
+        p["w_gate"] = L.dense_param(gen, (e, d, f), **kw)
+    return p
+
+
+def _expert_ffn(cfg: ModelConfig, p: Dict, xe):
+    """xe: [B, E, C, d] -> [B, E, C, d], per-expert FFN."""
+    h = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    if cfg.activation == Activation.SWIGLU:
+        g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+        h = F.silu(g) * h
+    elif cfg.activation == Activation.GEGLU:
+        g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
+        h = F.gelu(g, approximate="tanh") * h
+    elif cfg.activation == Activation.SQUARED_RELU:
+        h = torch.square(F.relu(h))
+    else:
+        h = F.gelu(h, approximate="tanh")
+    return torch.einsum("becf,efd->becd", h, p["w_down"])
+
+
+def _expert(p: Dict, e: int) -> Dict:
+    """Expert e's weights under ``layers.apply_mlp``'s names."""
+    q = {"wi": p["w_up"][e], "wo": p["w_down"][e]}
+    if "w_gate" in p:
+        q["wg"] = p["w_gate"][e]
+    return q
+
+
+def capacity(cfg: ModelConfig, s: int, dropless: bool) -> int:
+    """Slots each expert takes from one batch row of an s-token chunk."""
+    moe = cfg.moe
+    if dropless:
+        return s * moe.top_k
+    return max(1, math.ceil(s * moe.top_k * moe.capacity_factor
+                            / moe.num_experts))
+
+
+class Routing(NamedTuple):
+    """One chunk's routing for N batch rows of s tokens (sk = s * k)."""
+    probs: torch.Tensor      # [N, s, E] fp32 router softmax
+    idx: torch.Tensor        # [N, sk] int64 expert of each slot
+    gate: torch.Tensor       # [N, sk] fp32 renormalized gate
+    mask: torch.Tensor       # [N, sk, E] fp32 one-hot of idx
+    pos: torch.Tensor        # [N, sk] int32 capacity position in its row
+    keep: torch.Tensor       # [N, sk] bool: pos < C
+
+
+def route(cfg: ModelConfig, p: Dict, xc, C: int) -> Routing:
+    """The routing of the reference's ``_route_chunk`` for N batch rows of
+    one chunk each, xc: [N, s, d].  Capacity positions count along each
+    row alone."""
+    N, s, _ = xc.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    logits = xc.float() @ p["router"]                        # [N, s, E]
+    probs = torch.softmax(logits, dim=-1)
+    # a stable descending sort puts equal probabilities in index order:
+    # lax.top_k's tie rule (padded zero rows route to experts 0..k-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[..., :k], idx[..., :k]
+    gate = gate / torch.clamp_min(gate.sum(-1, keepdim=True), 1e-9)
+    idx, gate = idx.reshape(N, s * k), gate.reshape(N, s * k)
+    mask = F.one_hot(idx, E).float()                         # [N, sk, E]
+    pos = ((torch.cumsum(mask, dim=1) * mask).sum(-1) - 1.0).to(torch.int32)
+    return Routing(probs, idx, gate, mask, pos, pos < C)
+
+
+def _onehot_moe(cfg: ModelConfig, p: Dict, xc, r: Routing, C: int):
+    """The reference's GShard dispatch and combine of one chunk:
+    xc [B, s, d] -> y."""
+    B, s, d = xc.shape
+    k = cfg.moe.top_k
+    cap_oh = (r.pos[..., None] == torch.arange(C, device=xc.device)).float()
+    disp = (r.mask[..., None] * cap_oh[:, :, None, :]
+            * r.keep[..., None, None])                       # [B, sk, E, C]
+    combine = disp * r.gate[:, :, None, None]
+    x_f = torch.repeat_interleave(xc, k, dim=1)              # [B, sk, d]
+    xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), x_f)
+    ye = _expert_ffn(cfg, p, xe)                             # [B, E, C, d]
+    y = torch.einsum("btec,becd->btd", combine.to(xc.dtype), ye)
+    return y.reshape(B, s, k, d).sum(dim=2)
+
+
+def _host_counts(counts) -> list:
+    """The per-expert slot counts on the host: the sorted dispatch's one
+    device-to-host read a call."""
+    return counts.tolist()
+
+
+def _sorted_moe(cfg: ModelConfig, p: Dict, rows, r: Routing, real):
+    """Every chunk's kept slots at once, sorted by expert, one product per
+    expert.  rows: [N, s, d] (N = chunks x batch rows); real: [N, s] bool,
+    False on the padding of the last chunk (its slots count in the aux but
+    skip the experts)."""
+    N, s, d = rows.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    run = (r.keep & real.repeat_interleave(k, dim=1)).reshape(-1)
+    key = torch.where(run, r.idx.reshape(-1), E)             # E: not run
+    order = torch.argsort(key, stable=True)
+    counts = _host_counts(torch.bincount(key, minlength=E + 1)[:E])
+    order = order[:sum(counts)]
+    xs = rows.reshape(N * s, d)[order // k]                  # slot -> token
+    out = torch.empty_like(xs)
+    start = 0
+    for e, n in enumerate(counts):
+        if n:
+            out[start:start + n] = L.apply_mlp(cfg, _expert(p, e),
+                                               xs[start:start + n])
+        start += n
+    gate = r.gate.reshape(-1)[order].to(rows.dtype)
+    y = rows.new_zeros(N * s * k, d)
+    y[order] = out * gate[:, None]
+    return y.view(N, s, k, d).sum(dim=2)
+
+
+def _dense_moe(cfg: ModelConfig, p: Dict, rows, r: Routing):
+    """One-token chunks (decode): every expert runs every token in one
+    product batched over the experts, then each slot takes its expert's
+    row times its gate.  rows: [N, 1, d].  The top k experts of a token
+    are distinct, so every slot holds capacity position 0 and none is
+    dropped."""
+    N, _, d = rows.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    xe = rows.view(1, 1, N, d).expand(1, E, N, d)
+    ye = _expert_ffn(cfg, p, xe)[0]                          # [E, N, d]
+    tok = torch.arange(N, device=rows.device).repeat_interleave(k)
+    picked = ye[r.idx.reshape(-1), tok]                      # [N*k, d]
+    y = picked * r.gate.reshape(-1, 1).to(rows.dtype)
+    return y.view(N, 1, k, d).sum(dim=2)
+
+
+def apply_moe(cfg: ModelConfig, p: Dict, x, *, chunk_size: int = 0,
+              dropless: bool = False, attn_impl: str = "kernel"
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, S, d] -> (y, aux_loss).  Chunks the sequence (S % chunk by
+    zero-padding the last chunk); ``attn_impl`` picks the dispatch (see the
+    module docstring)."""
+    B, S, d = x.shape
+    if chunk_size == 0:
+        chunk_size = 256 if dropless else 1024  # dropless capacity is s*k
+    cs = min(chunk_size, S)
+    pad = (-S) % cs
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+    nc = x.shape[1] // cs
+    # every chunk's batch rows at once, chunk-major as the reference's
+    # scan: one router product, so both dispatches route alike
+    rows = x.reshape(B, nc, cs, d).transpose(0, 1).reshape(nc * B, cs, d)
+    C = capacity(cfg, cs, dropless)
+    r = route(cfg, p, rows, C)
+    # the Switch load-balancing loss of each chunk (padded rows included,
+    # as in the reference), averaged over the chunks
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
+    aux = E * torch.sum(r.mask.view(nc, B * cs * k, E).mean(1)
+                        * r.probs.view(nc, B * cs, E).mean(1), dim=-1)
+    aux = aux[0] if nc == 1 else aux.sum() / nc
+    if attn_impl == "plain":
+        y = torch.cat([_onehot_moe(
+            cfg, p, rows[c * B:(c + 1) * B],
+            Routing(*(t[c * B:(c + 1) * B] for t in r)), C)
+            for c in range(nc)])
+    elif cs == 1:
+        y = _dense_moe(cfg, p, rows, r)
+    else:
+        real = (torch.arange(nc * cs, device=x.device) < S).view(nc, 1, cs)
+        y = _sorted_moe(cfg, p, rows, r, real.expand(nc, B, cs)
+                        .reshape(nc * B, cs))
+    y = y.view(nc, B, cs, d).transpose(0, 1).reshape(B, nc * cs, d)
+    return y[:, :S], aux

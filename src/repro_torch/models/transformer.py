@@ -1,6 +1,6 @@
-"""Decoder stack for the dense decoder-only, VLM-backbone and attention-free
-SSM families (with gemma2's local/global alternation, ring caches and
-post-norms).
+"""Decoder stack for the dense decoder-only, MoE, VLM-backbone and
+attention-free SSM families (with gemma2's local/global alternation, ring
+caches and post-norms).
 
 The stack is described by a repeating **block pattern** (``block_pattern``
 is copied from the JAX package, so both sides name the same blocks).  As
@@ -14,9 +14,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, List, Optional
 
+import torch
+
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
+from repro_torch.models import moe as MOE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -80,7 +83,10 @@ def _block_init(cfg: ModelConfig, desc: BlockDesc, gen, R: int,
         p["attn"] = L.attention_params(cfg, gen, **kw)
     if desc.ffn != "none":
         p["norm_ffn"] = L.norm_init(cfg, cfg.d_model, **kw)
-        p["mlp"] = L.mlp_params(cfg, gen, **kw)
+        if desc.ffn == "moe":
+            p["moe"] = MOE.moe_params(cfg, gen, **kw)
+        else:
+            p["mlp"] = L.mlp_params(cfg, gen, **kw)
     if cfg.use_post_norm:
         p["post_norm_mixer"] = L.norm_init(cfg, cfg.d_model, **kw)
         if desc.ffn != "none":
@@ -110,8 +116,12 @@ def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
 
 def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
                  mode: str, positions=None, lengths=None, cache=None,
-                 cos=None, sin=None, attn_impl: str = "kernel"):
-    """mode: 'full' (prefill / teacher-forced) or 'decode'.  Returns x."""
+                 cos=None, sin=None, attn_impl: str = "kernel",
+                 dropless: bool = False):
+    """mode: 'full' (prefill / teacher-forced) or 'decode'.  Returns (x,
+    aux): aux is an MoE block's load-balancing loss, else None.  Decode
+    routes one token at a time, dropless, as the reference does."""
+    aux = None
     h = L.apply_norm(cfg, p["norm_mixer"], x)
     if desc.mixer == "mamba":
         if mode == "decode":
@@ -132,45 +142,58 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
         mix = L.apply_norm(cfg, p["post_norm_mixer"], mix)
     x = x + mix
     if desc.ffn == "none":
-        return x
+        return x, aux
     h = L.apply_norm(cfg, p["norm_ffn"], x)
-    y = L.apply_mlp(cfg, p["mlp"], h)
+    if desc.ffn == "moe":
+        kw = (dict(chunk_size=1, dropless=True) if mode == "decode"
+              else dict(dropless=dropless))
+        y, aux = MOE.apply_moe(cfg, p["moe"], h, attn_impl=attn_impl, **kw)
+    else:
+        y = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.use_post_norm:
         y = L.apply_norm(cfg, p["post_norm_ffn"], y)
-    return x + y
+    return x + y, aux
 
 
 def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
                   positions, caches: Optional[List[Dict]] = None,
-                  attn_impl: str = "kernel"):
+                  attn_impl: str = "kernel", dropless: bool = False):
     """Full-sequence pass.  x: [B, S, d]; positions [B, S], or [3, B, S]
-    under M-RoPE.  Returns (x, caches) — the caches written in place, or
-    None."""
+    under M-RoPE.  Returns (x, caches, aux) — the caches written in place,
+    or None; aux the MoE blocks' summed load-balancing loss (fp32 scalar).
+    dropless=True routes MoE blocks without overflow (inference)."""
     pat = block_pattern(cfg)
     cos = sin = None
     if not cfg.attention_free:
         cos, sin = L.positional_cos_sin(cfg, positions)
+    aux = x.new_zeros((), dtype=torch.float32)
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
             c = _layer(caches[j], r) if caches is not None else None
-            x = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
-                             mode="full", positions=positions, cache=c,
-                             cos=cos, sin=sin, attn_impl=attn_impl)
-    return x, caches
+            x, a = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
+                                mode="full", positions=positions, cache=c,
+                                cos=cos, sin=sin, attn_impl=attn_impl,
+                                dropless=dropless)
+            if a is not None:
+                aux = aux + a
+    return x, caches, aux
 
 
 def stack_decode(cfg: ModelConfig, stacked_params: List[Dict], x, *,
                  lengths, caches: List[Dict], attn_impl: str = "kernel"):
-    """One-token decode.  x: [B, 1, d].  Returns (x, caches) with the
+    """One-token decode.  x: [B, 1, d].  Returns (x, caches, aux) with the
     caches updated in place."""
     pat = block_pattern(cfg)
     cos = sin = None
     if not cfg.attention_free:
         cos, sin = L.positional_cos_sin(cfg, lengths[:, None])
+    aux = x.new_zeros((), dtype=torch.float32)
     for r in range(num_repeats(cfg)):
         for j, desc in enumerate(pat):
-            x = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
-                             mode="decode", lengths=lengths,
-                             cache=_layer(caches[j], r), cos=cos, sin=sin,
-                             attn_impl=attn_impl)
-    return x, caches
+            x, a = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
+                                mode="decode", lengths=lengths,
+                                cache=_layer(caches[j], r), cos=cos, sin=sin,
+                                attn_impl=attn_impl)
+            if a is not None:
+                aux = aux + a
+    return x, caches, aux

@@ -237,6 +237,28 @@ def test_flash_attention_starcoder2_heads(cuda, S, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("S,window", [(4400, 4096), (300, 256), (129, 40),
+                                      (65, 4096)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_mixtral_heads(cuda, S, window, dtype):
+    """mixtral-8x7b's heads (32 query over 8 KV heads of 128, G = 4) under
+    the 4096 window of every layer: its 4400-token prefill past the
+    window, and shorter cases across the 64-row tiles."""
+    rng = np.random.default_rng(S + window + 1)
+    q = on(cuda, rng.standard_normal((1, S, 32, 128)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 8, 128)), DTYPES[dtype])
+            for _ in range(2))
+    kw = dict(scale=128 ** -0.5, window=window)
+    before = FA.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [142, 404, 891])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_qwen2_vl_heads(cuda, S, dtype):
@@ -331,6 +353,31 @@ def test_paged_attention_starcoder2_and_qwen2_vl_heads(cuda, H, ps, maxp,
     pages of the engine's slot caches."""
     B, KVH, D = 4, 2, 128
     rng = np.random.default_rng(H + maxp + lengths[1])
+    q = on(cuda, rng.standard_normal((B, H, D)), DTYPES[dtype])
+    kp, vp = (on(cuda, rng.standard_normal((B * maxp, ps, KVH, D)),
+                 DTYPES[dtype]) for _ in range(2))
+    pt = torch.arange(B * maxp, dtype=torch.int32,
+                      device=cuda).view(B, maxp)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = PA.paged_attention_cuda.launches
+    got = ops.paged_attention(q, kp, vp, pt, ln, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_cuda.launches == before + 1
+    want = PA.paged_attention_plain(q, kp, vp, pt, ln, scale=D ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[4096, 715, 602, 385],
+                                     [4096, 4097, 1, 4095]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_mixtral_heads(cuda, lengths, dtype):
+    """Decode at mixtral-8x7b's heads (32 query over 8 KV heads of 128,
+    G = 4: the kernel's 8-head variant with 4 slots idle) over identity
+    pages of its 4096-slot rings, at and past their capacity."""
+    B, H, KVH, D, ps, maxp = 4, 32, 8, 128, 64, 64
+    rng = np.random.default_rng(lengths[1])
     q = on(cuda, rng.standard_normal((B, H, D)), DTYPES[dtype])
     kp, vp = (on(cuda, rng.standard_normal((B * maxp, ps, KVH, D)),
                  DTYPES[dtype]) for _ in range(2))
@@ -512,14 +559,17 @@ def test_reduced_gemma2_kernel_path_with_a_binding_softcap(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["starcoder2-3b", "qwen2-vl-2b",
-                                  "nemotron-4-340b"])
+                                  "nemotron-4-340b", "mixtral-8x7b",
+                                  "grok-1-314b"])
 def test_reduced_variant_kernel_path_matches_plain_path(cuda, arch):
-    """starcoder2-3b (16-slot rings on every layer), qwen2-vl-2b (M-RoPE)
-    and nemotron-4-340b (int8 KV caches) at smoke width on the card: a
-    32-token prefill and 16 decode steps through the kernels against the
-    plain path's teacher-forced forward.  The int8 cache holds int8 values
-    with scales that are not zero, and its logits differ from the same
-    model's with bf16 caches, within the same bounds."""
+    """starcoder2-3b (16-slot rings on every layer), qwen2-vl-2b (M-RoPE),
+    nemotron-4-340b (int8 KV caches), mixtral-8x7b (MoE FFNs over 16-slot
+    rings) and grok-1-314b (GeGLU experts, a softcap of 30, int8 caches)
+    at smoke width on the card: a 32-token prefill and 16 decode steps
+    through the kernels (and the sorted MoE dispatch) against the plain
+    path's teacher-forced forward (one-hot MoE products).  The int8 cache
+    holds int8 values with scales that are not zero, and its logits differ
+    from the same model's with bf16 caches, within the same bounds."""
     import dataclasses
 
     from repro_torch.configs import get_config
@@ -566,6 +616,47 @@ def test_reduced_qwen2_vl_embeds_on_the_card(cuda):
     assert float((outs[0].softmax(-1) - outs[1].softmax(-1)).abs().max()) \
         < 0.05
     assert float((outs[2] - outs[0]).abs().mean()) > 5 * err
+
+
+def moe_close(got, want):
+    """The bf16 bounds in units of the plain output's largest magnitude:
+    2e-2 elementwise, 1e-2 in norm.  The experts' outputs reach the
+    hundreds at full width (w_up is drawn with std 1/sqrt(E), as in the
+    JAX twin), where one bf16 step is a unit or more, and a token's two
+    gated slots may cancel in their sum."""
+    scale = float(want.float().abs().max())
+    close(got / scale, want / scale, **tol_for("bfloat16"))
+    rel_close(got, want, "bfloat16")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S", [(1, 300), (4, 1)])
+def test_moe_kernel_dispatch_at_full_layer_width(cuda, B, S):
+    """One mixtral-8x7b MoE layer at full width (d_model 4096, 8 experts of
+    d_ff 14336, top-2) on the card, dropless: a 300-token prefill (two
+    chunks of 256, the second padded) and a decode step (chunk_size=1) on
+    the kernel path (sorted per-expert products; the decode's product
+    batched over the experts) against the plain one-hot path, y within
+    moe_close's bounds and the loss within 2e-5; the prefill's routing
+    reaches all 8 experts."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    cfg = get_config("mixtral-8x7b")
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    p = MOE.moe_params(cfg, gen, device=cuda)
+    x = torch.randn(B, S, cfg.d_model, generator=gen,
+                    device=cuda).bfloat16()
+    kw = dict(chunk_size=1) if S == 1 else {}
+    with torch.inference_mode():
+        y, aux = MOE.apply_moe(cfg, p, x, dropless=True, **kw)
+        y_ref, aux_ref = MOE.apply_moe(cfg, p, x, dropless=True,
+                                       attn_impl="plain", **kw)
+        r = MOE.route(cfg, p, x, MOE.capacity(cfg, S, True))
+    assert y.shape == x.shape and bool(torch.isfinite(y).all())
+    moe_close(y, y_ref)
+    close(aux, aux_ref, **tol_for("float32"))
+    if S > 1:
+        assert set(r.idx.unique().tolist()) == set(range(8))
 
 
 def model_tokens(cuda, cfg):

@@ -1,13 +1,14 @@
 """The port's RealEngine: every mode serves the same tokens as a sequential
 greedy run of the port's own model, and that run agrees with the JAX
-package's ``tests/test_engine.py::reference_outputs``.  All six of the
+package's ``tests/test_engine.py::reference_outputs``.  Seven of the
 port's models are served at smoke width: olmo-1b (KV caches), mamba2-780m
 (conv and SSM state caches, the SSD scan's plain version on the CPU),
 gemma2-2b (a 16-slot ring cache on its local layers beside its global
 layers' full cache, softcaps and post-norms), starcoder2-3b (16-slot rings
 on every layer, LayerNorm, GELU), qwen2-vl-2b (the VLM backbone on token
-ids: M-RoPE with t = h = w) and nemotron-4-340b (int8 KV caches with fp32
-scales, squared ReLU).
+ids: M-RoPE with t = h = w), nemotron-4-340b (int8 KV caches with fp32
+scales, squared ReLU) and mixtral-8x7b (MoE FFNs, routed dropless in
+prefill and decode, over 16-slot rings on every layer).
 
 Engine against the port's reference: token for token (the engine runs the
 same eager torch model, so nothing may differ).  Port against JAX:
@@ -63,7 +64,7 @@ def gemma_setup():
 
 
 @pytest.fixture(scope="module", params=["starcoder2-3b", "qwen2-vl-2b",
-                                        "nemotron-4-340b"])
+                                        "nemotron-4-340b", "mixtral-8x7b"])
 def variant_setup(request):
     return _setup(request.param)
 
@@ -298,10 +299,10 @@ def test_gemma2_reference_agrees_with_jax(gemma_setup, gemma_reference):
                                   "dynamic_pd", "disagg"])
 def test_variant_engine_matches_reference(variant_setup, variant_reference,
                                           mode):
-    """starcoder2-3b, qwen2-vl-2b and nemotron-4-340b served in every mode:
-    slot inserts and the disagg transfer carry starcoder2's rings (one
-    prompt past the window) and nemotron's int8 values with their fp32
-    scales."""
+    """starcoder2-3b, qwen2-vl-2b, nemotron-4-340b and mixtral-8x7b served
+    in every mode: slot inserts and the disagg transfer carry starcoder2's
+    and mixtral's rings (one prompt past the window) and nemotron's int8
+    values with their fp32 scales; mixtral's MoE blocks change no cache."""
     cfg = variant_setup[0]
     reqs = variant_requests(cfg)
     eng, res = run_engine(variant_setup, reqs, mode=mode)

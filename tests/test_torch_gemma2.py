@@ -257,15 +257,15 @@ def test_post_norm_block_matches_jax(cfgs, models, j, mode):
     ct = TL.kv_cache_init(tcfg, B, T, tdesc.window, device="cpu")
     yj, cj, _ = JT._apply_block(jcfg, jdesc, pj, xj, mode="full",
                                 positions=posj, cache=cj)
-    yt = TT._apply_block(tcfg, tdesc, pt, xt, mode="full", positions=post,
-                         cache=ct)
+    yt, _ = TT._apply_block(tcfg, tdesc, pt, xt, mode="full",
+                            positions=post, cache=ct)
     if mode == "decode":
         xj, xt = both(rng.standard_normal((B, 1, 128)))
         lj, lt = both([n, n], np.int32)
         yj, cj, _ = JT._apply_block(jcfg, jdesc, pj, xj, mode="decode",
                                     lengths=lj, cache=cj)
-        yt = TT._apply_block(tcfg, tdesc, pt, xt, mode="decode",
-                             lengths=lt, cache=ct)
+        yt, _ = TT._apply_block(tcfg, tdesc, pt, xt, mode="decode",
+                                lengths=lt, cache=ct)
     close(yt, yj, **F32)
     close(ct["k"], cj["k"], **F32)
 

@@ -369,13 +369,17 @@ def test_stack_cache_layout(cfgs):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(moe=MoEConfig(num_experts=4, top_k=2)), "item 7"),
     (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2), "item 8"),
+    # a hybrid stack with MoE FFNs (jamba's) waits on item 8 too
+    (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2,
+          moe=MoEConfig(num_experts=4, top_k=2, every=2)), "item 8"),
     (dict(attn_every=2), "item 8"),
     (dict(encoder_layers=2, family=Family.AUDIO), "item 9"),
     (dict(pos_emb=PosEmb.LEARNED), "item 9"),
     # item 6's variants (gemma2-2b, starcoder2-3b, qwen2-vl-2b and
-    # nemotron-4-340b brought them): no longer refused
+    # nemotron-4-340b brought them) and item 7's MoE FFNs (mixtral-8x7b,
+    # grok-1-314b): no longer refused
+    (dict(moe=MoEConfig(num_experts=4, top_k=2)), None),
     (dict(family=Family.VLM), None),
     (dict(pos_emb=PosEmb.MROPE), None),
     (dict(kv_cache_dtype="int8"), None),
@@ -385,7 +389,7 @@ def test_stack_cache_layout(cfgs):
 ])
 def test_build_model_refuses_unported_features(cfgs, change, item):
     """A feature outside the slices is refused, naming its ROADMAP item.
-    The VLM family, M-RoPE, int8 KV caches, the sliding window,
+    MoE FFNs, the VLM family, M-RoPE, int8 KV caches, the sliding window,
     local/global alternation and post-norm (item None) are ported: such a
     config builds, and its model runs a prefill past the window and one
     decode step."""
