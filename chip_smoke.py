@@ -19,20 +19,25 @@ fallback):
             Every attention model after the first gets cases and times at
             its own heads, windows and logit softcap (gemma2-2b, G = 2 at
             head_dim 256; starcoder2-3b, G = 12 under a window on every
-            layer; qwen2-vl-2b, G = 6; the reduced nemotron-4-340b, head_dim
-            32; mixtral-8x7b, G = 4 under a window on every layer), with
+            layer; qwen2-vl-2b, G = 6; nemotron-4-340b, G = 12 at head_dim
+            192; mixtral-8x7b, G = 4 under a window on every layer;
+            jamba-1.5-large, G = 8 with no positional embedding), with
             scores scaled past a softcap so a kernel that dropped it would
-            fail.  The library calls are SDPA (a window as a
-            boolean mask) and, under a window or a softcap, flex_attention
+            fail; a hybrid model's SSD scan gets cases and a time at its
+            own heads (jamba-1.5-large: 256 heads over one group).  The
+            library calls are SDPA (a window as a boolean mask) and,
+            under a window or a softcap, flex_attention
             (the window as a block mask, the cap as score_mod), each held
             against the plain version first; the fastest is the library
             call, the others stand beside it (SDPA without a softcap is
             timed apart under one: a different function).
 Then for each model, olmo-1b, mamba2-780m, gemma2-2b, starcoder2-3b and
-qwen2-vl-2b at full published width, nemotron-4-340b at its reduced()
-width (int8 KV caches kept; the full model does not fit one card), and
-mixtral-8x7b at full layer width cut to 8 of its 32 layers (CUT; 46.7 B
-parameters do not fit one card), random weights from --seed:
+qwen2-vl-2b at full published width, and at full layer width cut in depth
+(CUT; none of the three fits one card whole) nemotron-4-340b to 4 of its
+96 layers (head_dim 192, int8 KV caches), mixtral-8x7b to 8 of its 32 and
+jamba-1.5-large to one 8-layer pattern repeat of its 72 with 8 of its 16
+experts (a hybrid: 7 Mamba-2 blocks and 1 attention block, int8 KV),
+random weights from --seed:
 4. model    a prefill plus 16 decode steps on the kernel path against the
             plain path, teacher-forced (a windowed model: a prompt 64
             tokens past its window; under a logit softcap, again with the
@@ -57,10 +62,10 @@ parameters do not fit one card), random weights from --seed:
             32 new tokens each, arriving as a burst.  Every request must
             complete, with the same tokens in every mode, and the launch
             counters (reset just before each mode) must show the engine ran
-            through the model's kernels: every attention layer's flash
-            launch under its window and paged launch over its own cache's
-            capacity, as the wrappers count them, every SSD scan on the
-            tensor cores.
+            through the model's kernels, counted by mixer: every attention
+            layer's flash launch under its window and paged launch over its
+            own cache's capacity, as the wrappers count them, every Mamba
+            layer's SSD scan, each on the tensor cores.
 6. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -68,6 +73,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -75,6 +81,12 @@ import re
 import subprocess
 import sys
 import time
+
+# the cut models fill most of the card, and their init draws each stacked
+# tensor in fp32 before it casts: expandable segments let the allocator
+# reuse those temporaries' memory for tensors of other sizes (set before
+# the first CUDA allocation)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import numpy as np
 import torch
@@ -102,13 +114,19 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}
 CAP_BOOST = {torch.bfloat16: 30.0, torch.float32: 4.0}
 SSD_TOL = {torch.bfloat16: 2e-2, torch.float32: 1e-3}
 ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b", "starcoder2-3b",
-         "qwen2-vl-2b", "nemotron-4-340b", "mixtral-8x7b")
-# served at reduced() width: nemotron-4-340b (int8 KV caches) is far too
-# large for one card, and its head_dim of 192 is in neither kernel
-REDUCED = ("nemotron-4-340b",)
-# served at full layer width with fewer layers: mixtral-8x7b's 32 layers
-# hold 46.7 B parameters (93.4 GB in bf16); 8 of them hold 11.9 B
-CUT = {"mixtral-8x7b": 8}
+         "qwen2-vl-2b", "nemotron-4-340b", "mixtral-8x7b",
+         "jamba-1.5-large-398b")
+# served at full layer width, cut in depth (and jamba's in experts): each
+# matrix keeps its published shape.  nemotron-4-340b's 96 layers hold 341 B
+# parameters; 4 of them, the embedding and the untied head 23.3 B (46.5 GB
+# in bf16; Model._logits widens the head to an 18.9 GB fp32 copy a call).
+# mixtral-8x7b's 32 layers hold 46.7 B (93.4 GB); 8 of them 11.9 B.
+# jamba-1.5-large's 72 layers hold 398 B, one 8-layer repeat of its pattern
+# 45.1 B (90.3 GB), and that repeat with 8 of its 16 experts 25.8 B
+# (51.6 GB); num_repeats allows no depth below one pattern.
+CUT = {"nemotron-4-340b": dict(num_layers=4),
+       "mixtral-8x7b": dict(num_layers=8),
+       "jamba-1.5-large-398b": dict(num_layers=8, num_experts=8)}
 # full-width models whose int8 KV cache is also run in the model phase
 # (checked against bf16 caches, and its decode step traced): head_dim 128,
 # starcoder2-3b's 4096-slot rings and qwen2-vl-2b's slot caches
@@ -301,6 +319,36 @@ def check_close(name: str, got, want, dtype, tols=TOL) -> float:
     require(ok, f"{name}: kernel disagrees with its plain version "
                 f"(max abs err {err:.3g}, tolerance {tol})")
     return err
+
+
+# --------------------------------------------------------------------- cuts
+
+def cut_config(cfg, num_layers: int = 0, num_experts: int = 0):
+    """``cfg`` at full layer width with its first ``num_layers`` layers and
+    its first ``num_experts`` experts (0: all), as launch/serve.py's
+    --layers and --experts cut it."""
+    if num_layers:
+        cfg = dataclasses.replace(cfg, num_layers=num_layers)
+    if num_experts:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=num_experts))
+    return cfg
+
+
+def cut_label(published, cfg) -> str:
+    """How ``cfg`` differs from the published config: its width, and the
+    layers and experts a cut keeps."""
+    kept = []
+    if cfg.num_layers != published.num_layers:
+        kept.append(f"{cfg.num_layers} of {published.num_layers} layers")
+    if cfg.moe is not None and cfg.moe.num_experts != \
+            published.moe.num_experts:
+        kept.append(f"{cfg.moe.num_experts} of {published.moe.num_experts} "
+                    f"experts")
+    if not kept:
+        return "full width"
+    return (f"full layer width, {' and '.join(kept)} (a cut, not the "
+            f"published model)")
 
 
 # ------------------------------------------------------------------ traffic
@@ -759,11 +807,20 @@ def ssd_inputs(B, S, H, P, G, N, dt_type, gen, *, init):
     return args, (randn(B, H, P, N) if init else None)
 
 
-def ssd_cases(S: int):
+def ssd_shape(cfg, S: int):
+    """(B, S, H, P, G, N, chunk) of a model's SSD scan over an S-token
+    prefill at batch 1."""
+    s = cfg.ssm
+    return (1, S, s.expand * cfg.d_model // s.head_dim, s.head_dim,
+            s.ngroups, s.state_dim, s.chunk_size)
+
+
+def ssd_cases(S: int, models):
     """(label, (B, S, H, P, G, N, chunk), dtype, init) — the sweeps of
     tests/test_kernels.py, the bf16 kernel's 64-row tile and chunk edges
     at mamba2-780m's widths, the reduced model's and the widest shapes,
-    then the engine's prefill at the longest prompt."""
+    then the engine's prefill at the longest prompt, then each hybrid
+    model's (``models``: (cfg, its longest prompt)) in both types."""
     main = (1, S, 48, 64, 1, 128, 256)          # mamba2-780m's prefill
     cases = []
     for dt_type in (torch.float32, torch.bfloat16):
@@ -783,14 +840,20 @@ def ssd_cases(S: int):
                   ("P=N=128", (1, 300, 4, 128, 1, 128, 256), torch.bfloat16,
                    init),
                   ("main", main, torch.bfloat16, init)]
+    for cfg, S_ in models:
+        for dt_type in (torch.float32, torch.bfloat16):
+            for init in (False, True):
+                cases.append((cfg.name, ssd_shape(cfg, S_), dt_type, init))
     return main, cases
 
 
-def check_ssd(prompt_lens, gen):
+def check_ssd(prompt_lens, models, gen):
+    """``models``: (cfg, its longest prompt) for each hybrid model, whose
+    scan runs at its own heads."""
     from repro_torch.kernels import ssd_scan as SSD
     S = max(prompt_lens)
-    main, cases = ssd_cases(S)
-    main_err = 0.0
+    main, cases = ssd_cases(S, models)
+    main_err, errs = 0.0, {}
     for label, (B, S_, H, P, G, N, chunk), dt_type, init in cases:
         args, st = ssd_inputs(B, S_, H, P, G, N, dt_type, gen, init=init)
         variant = "wgmma" if dt_type == torch.bfloat16 else "cuda_core"
@@ -809,11 +872,31 @@ def check_ssd(prompt_lens, gen):
                               SSD_TOL))
         if label == "main":
             main_err = max(main_err, err)
+        elif dt_type == torch.bfloat16:
+            errs[label] = max(errs.get(label, 0.0), err)
         print(f"  {name}: max_abs_err={err:.3g}")
 
-    # timing at the engine's longest prompt, with the initial state the
-    # engine's prefill passes (the zeroed slot state)
-    B, S, H, P, G, N, chunk = main
+    # timing at each hybrid model's shape (its own row), then at the
+    # engine's longest prompt at mamba2-780m's, each with the initial state
+    # the engine's prefill passes (the zeroed slot state)
+    extra = []
+    for cfg, S_ in models:
+        t = time_ssd(SSD, ssd_shape(cfg, S_), gen)
+        t["model"], t["variant"] = cfg.name, "wgmma"
+        t["max_abs_err"] = errs[cfg.name]
+        print(f"  ssd_scan at {t['shape']}: {times_text(t)}")
+        extra.append(t)
+    t = time_ssd(SSD, main, gen)
+    return dict(name="ssd_scan", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
+                replaces="src/repro/kernels/ssd_scan.py:81",
+                max_abs_err=main_err, **t, models=extra)
+
+
+def time_ssd(SSD, shape, gen):
+    """Kernel and plain times of one bf16 scan, beside the card's bound;
+    no PyTorch call computes a selective chunked scan."""
+    B, S, H, P, G, N, chunk = shape
     args, st = ssd_inputs(B, S, H, P, G, N, torch.bfloat16, gen, init=True)
     t = kernel_times(
         lambda: SSD.ssd_scan_cuda(*args, chunk=chunk, initial_state=st),
@@ -827,13 +910,9 @@ def check_ssd(prompt_lens, gen):
               + dt.numel() * 4 + A.numel() * 4
               + 2 * st.numel() * 4)                 # state in and out
     bound_ms, bound_by = bound(flops, nbytes)
-    return dict(name="ssd_scan", route="cuda",
-                source="src/repro_torch/kernels/csrc/ssd_scan.cu",
-                replaces="src/repro/kernels/ssd_scan.py:81",
-                max_abs_err=main_err, **t, bound_ms=bound_ms,
-                bound_by=bound_by,
-                shape=f"x [1,{S},48,64] bf16, B/C [1,{S},1,128] bf16, "
-                      f"state [1,48,64,128] fp32, chunk {chunk}")
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"x [{B},{S},{H},{P}] bf16, B/C [{B},{S},{G},{N}] "
+                      f"bf16, state [{B},{H},{P},{N}] fp32, chunk {chunk}")
 
 
 # -------------------------------------------------------------------- model
@@ -1055,10 +1134,12 @@ def check_mrope(cfg, params, seed: int, B: int = 2, P: int = 320) -> None:
 
 def check_int8(cfg, params, seed: int, B: int = 2, P: int = 256) -> None:
     """An int8 KV cache on the card: the kernel path's prefill of B x P
-    tokens plus teacher-forced decode leaves every layer's cache holding
-    torch.int8 values with scales above zero at every filled slot; and its
+    tokens plus teacher-forced decode leaves every attention layer's cache
+    holding torch.int8 values with scales above zero at every filled slot
+    (a hybrid's Mamba layers keep their fp32 conv and SSM state); and its
     logits differ from the same model's with bf16 caches (so quantization
-    ran) but stay within compare_logits' gates of them."""
+    ran) but stay within compare_logits' gates of them (an MoE model's
+    under its MoE bounds)."""
     from repro_torch.models import build_model
     rng = np.random.default_rng(seed + 6)
     S = P + MODEL_DECODE_STEPS
@@ -1067,6 +1148,7 @@ def check_int8(cfg, params, seed: int, B: int = 2, P: int = 256) -> None:
     int8 = dataclasses.replace(cfg, kv_cache_dtype="int8")
     got, prefill_ms, step_ms, cache = prefill_decode(build_model(int8),
                                                      params, toks, P)
+    cache = [c for c in cache if "k" in c]           # the attention layers
     for c in cache:
         require(c["k"].dtype == torch.int8 and c["v"].dtype == torch.int8,
                 f"model: int8 cache holds {c['k'].dtype}/{c['v'].dtype}")
@@ -1090,11 +1172,13 @@ def check_int8(cfg, params, seed: int, B: int = 2, P: int = 256) -> None:
     require(diff > 0, "model: int8 and bf16 caches give the same decode "
                       "logits: the cache was not quantized")
     compare_logits(f"{B}x{P} prompt + {MODEL_DECODE_STEPS} decode steps, "
-                   f"int8 KV cache vs bf16 KV cache", got, other)
+                   f"int8 KV cache vs bf16 KV cache", got, other,
+                   cfg.moe is not None)
 
 
 def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
-    """The model's first MoE layer on the card, at its full width: the
+    """The model's first MoE layer on the card (layer ``first``), at its
+    full width: the
     kernel dispatch (sorted per-expert products; one-token steps batched
     over the experts) against the plain one-hot dispatch, dropless, on a
     prefill of ``prompt_len`` unit-RMS rows (the norm before the layer
@@ -1107,8 +1191,12 @@ def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
     its expert counts to the host once a call) beside the bound of the
     expert products the routing asks for."""
     from repro_torch.models import moe as MOE
-    from repro_torch.models.transformer import _layer
-    p = _layer(params["blocks"][0], 0)["moe"]
+    from repro_torch.models.transformer import (_layer, block_pattern,
+                                                num_repeats)
+    pattern = block_pattern(cfg)
+    first = next(j for j, d in enumerate(pattern) if d.ffn == "moe")
+    n_moe = num_repeats(cfg) * sum(d.ffn == "moe" for d in pattern)
+    p = _layer(params["blocks"][first], 0)["moe"]
     E, k, d, f = (cfg.moe.num_experts, cfg.moe.top_k, cfg.d_model,
                   cfg.d_ff)
     mats = 3 if "w_gate" in p else 2
@@ -1135,7 +1223,7 @@ def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
         scale = float(y_ref.float().abs().max())
         err = max_err(y, y_ref) / scale
         rel = rel_err(y, y_ref)
-        name = f"moe {cfg.name} layer 0 {phase} {B}x{S}"
+        name = f"moe {cfg.name} layer {first} {phase} {B}x{S}"
         require(bool(torch.isfinite(y).all()) and y.shape == x.shape,
                 f"{name}: output {tuple(y.shape)}, not finite or not "
                 f"{tuple(x.shape)}")
@@ -1165,8 +1253,8 @@ def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
               f"{float(aux):.6g} vs {float(aux_ref):.6g}; slots per expert "
               f"{slots} ({reached} of {E} reached); ms={ms!r} "
               f"plain_ms={plain_ms!r} bound_ms={bound_ms!r} ({bound_by}); "
-              f"x{cfg.num_layers} layers: ms={ms * cfg.num_layers!r} "
-              f"plain_ms={plain_ms * cfg.num_layers!r}")
+              f"x{n_moe} MoE layers: ms={ms * n_moe!r} "
+              f"plain_ms={plain_ms * n_moe!r}")
 
 
 def print_trace(prof, per: int, host_ms: float, what: str):
@@ -1269,11 +1357,21 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
 
 def path_kernels(cfg):
     """The kernels a model's serving path runs, each with the phase that
-    launches it once a layer: "prefill" (once a request) or "decode" (once
-    a decode step)."""
-    if cfg.attention_free:
-        return {"ssd_scan": "prefill"}
-    return {"flash_attention": "prefill", "paged_attention": "decode"}
+    launches it, "prefill" (once a request) or "decode" (once a decode
+    step), and the layers that launch it once each: flash and paged every
+    attention layer, the SSD scan every Mamba layer (a hybrid runs all
+    three)."""
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    pattern = block_pattern(cfg)
+    n_attn = num_repeats(cfg) * sum(d.is_attn for d in pattern)
+    n_mamba = cfg.num_layers - n_attn
+    kernels = {}
+    if n_attn:
+        kernels["flash_attention"] = ("prefill", n_attn)
+        kernels["paged_attention"] = ("decode", n_attn)
+    if n_mamba:
+        kernels["ssd_scan"] = ("prefill", n_mamba)
+    return kernels
 
 
 def kind_of(name: str) -> str:
@@ -1299,28 +1397,31 @@ def layers_by_kind(cfg, max_len: int):
 
 
 def check_launches(cfg, mode: str, counts, kinds, max_len: int) -> None:
-    """Gate one mode's launch counts on the model's path kernels, and an
-    attention model's counts by kind: every layer of every kind launched
-    each kernel once a prefill or a decode step."""
-    n_layers = cfg.num_layers
+    """Gate one mode's launch counts on the model's path kernels, by mixer:
+    each kernel launched once a prefill or a decode step by every layer of
+    the mixer it serves (path_kernels); and an attention model's counts by
+    kind: every attention layer of every kind launched each of its
+    kernels."""
+    kernels = path_kernels(cfg)
     for name, n in counts.items():
-        phase = path_kernels(cfg).get(name)
+        phase, n_layers = kernels.get(name, (None, 0))
         if phase is None:
             require(n == 0, f"engine[{mode}]: {name} launched {n} times, "
                             f"off {cfg.name}'s path")
-        elif phase == "prefill":
-            require(n >= n_layers * N_REQUESTS,
-                    f"engine[{mode}]: {name} launched {n} times, expected "
-                    f">= {n_layers * N_REQUESTS}")
-        else:
-            # every request needs MAX_NEW - 1 decode steps after its prefill
-            require(n >= n_layers * (MAX_NEW - 1) and n % n_layers == 0,
-                    f"engine[{mode}]: {name} launched {n} times, expected "
-                    f"a multiple of {n_layers} and "
-                    f">= {n_layers * (MAX_NEW - 1)}")
-            print(f"  engine[{mode}]: decode steps={n // n_layers}")
-    if cfg.attention_free:
+            continue
+        # every request is prefilled once, then needs MAX_NEW - 1 decode
+        # steps
+        least = N_REQUESTS if phase == "prefill" else MAX_NEW - 1
+        require(n >= n_layers * least and n % n_layers == 0,
+                f"engine[{mode}]: {name} launched {n} times, expected a "
+                f"multiple of its {n_layers} layers and "
+                f">= {n_layers * least}")
+        print(f"  engine[{mode}]: {name}: {n // n_layers} "
+              f"{'prefills' if phase == 'prefill' else 'decode steps'} of "
+              f"{n_layers} of {cfg.num_layers} layers")
+    if "flash_attention" not in kernels:
         return
+    n_layers = kernels["flash_attention"][1]
     for name, layers in layers_by_kind(cfg, max_len).items():
         calls = counts[name] // n_layers
         want = {kind: calls * n for kind, n in layers.items()}
@@ -1432,9 +1533,7 @@ def main() -> int:
 
     # 3. kernels against their plain versions
     from repro_torch.models import build_model
-    cfgs = [get_config(a).reduced() if a in REDUCED
-            else dataclasses.replace(get_config(a), num_layers=CUT[a])
-            if a in CUT else get_config(a) for a in ARCHS]
+    cfgs = [cut_config(get_config(a), **CUT.get(a, {})) for a in ARCHS]
     # the prompt lengths come first from the seed: the same for every vocab
     traffic = {cfg.name: engine_traffic(
         args.seed, cfg.vocab_size,
@@ -1447,6 +1546,9 @@ def main() -> int:
     models = [(cfg, [len(p) for p in traffic[cfg.name][0]],
                traffic[cfg.name][1]) for cfg in cfgs[1:]
               if not cfg.attention_free]
+    # every hybrid model's SSD scan at its own heads, at its longest prompt
+    hybrids = [(cfg, max(len(p) for p in traffic[cfg.name][0]))
+               for cfg in cfgs if cfg.attn_every]
     gen = torch.Generator(device="cuda")
     gen.manual_seed(args.seed)
     print(f"[kernels] engine prompt lengths {prompt_lens}, max_len "
@@ -1456,7 +1558,7 @@ def main() -> int:
     kernels = [check_flash(prompt_lens,
                            [(cfg, lens) for cfg, lens, _ in models], gen),
                check_paged(max_len, prompt_lens, models, gen),
-               check_ssd(prompt_lens, gen)]
+               check_ssd(prompt_lens, hybrids, gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
@@ -1469,11 +1571,7 @@ def main() -> int:
         t0 = time.monotonic()
         params = build_model(cfg).init(args.seed, device="cuda")
         n_params = sum(t.numel() for t in _leaves(params))
-        width = ("REDUCED width (reduced(): a cut, not the published model)"
-                 if arch in REDUCED else
-                 f"full layer width, {cfg.num_layers} of "
-                 f"{get_config(arch).num_layers} layers (a cut, not the "
-                 f"published model)" if arch in CUT else "full width")
+        width = cut_label(get_config(arch), cfg)
         print(f"[model] {cfg.name} {width}, {n_params} parameters, "
               f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
               f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
@@ -1511,8 +1609,15 @@ def main() -> int:
             cfg, params, prompts, max_len)
         for name, n in by_model[cfg.name].items():
             launches[name] += n
+        # the engines' reference cycles (each replica holds its engine,
+        # which holds the params) outlive run_engine until the cyclic
+        # collector runs: collect them, or the next model finds the card
+        # still holding this one
         del params
+        gc.collect()
         torch.cuda.empty_cache()
+        print(f"  {cfg.name} freed: {torch.cuda.memory_allocated()} bytes "
+              f"still allocated on the card")
 
     # 6. report
     for k in kernels:

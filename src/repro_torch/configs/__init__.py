@@ -11,6 +11,7 @@ from repro_torch.configs.base import (Activation, Family, ModelConfig, Norm,
 _ARCH_MODULES: Dict[str, str] = {
     "gemma2-2b": "repro_torch.configs.gemma2_2b",
     "grok-1-314b": "repro_torch.configs.grok_1_314b",
+    "jamba-1.5-large-398b": "repro_torch.configs.jamba_1_5_large_398b",
     "mamba2-780m": "repro_torch.configs.mamba2_780m",
     "mixtral-8x7b": "repro_torch.configs.mixtral_8x7b",
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",

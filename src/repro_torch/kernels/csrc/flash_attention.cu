@@ -17,8 +17,8 @@
 //   * one block of one warpgroup (4 warps) per (64-row q tile, head, batch),
 //     each warp owning 16 query rows.  Two blocks fit on an SM (83 KB of
 //     shared memory at D = 128), so one block's softmax runs while the
-//     other's products do; at D = 256 one block takes 161 KB and an SM
-//     holds one (blocks_per_sm).  The q tiles launch in reverse order, so
+//     other's products do; at D = 192 one block takes 121 KB and at
+//     D = 256 161 KB, and an SM holds one (blocks_per_sm).  The q tiles launch in reverse order, so
 //     the causal tiles with the most KV tiles start first;
 //   * Q is copied once into shared memory with cp.async; each KV tile
 //     reads it into registers again as the S product's A operand
@@ -26,10 +26,12 @@
 //     registers), so no A fragment lives across tiles (see below).  K and
 //     V tiles of 64 rows go through a two-stage ring by cp.async.cg,
 //     zero-filled past T, in the swizzled layout that wgmma's
-//     shared-memory descriptors read (128-byte swizzle at D = 128 and 256,
-//     64-byte below), so tile j+1 loads while tile j is computed;
+//     shared-memory descriptors read (128-byte swizzle at D = 128, 192 and
+//     256, 64-byte below; a 192-wide row is three 128-byte blocks), so
+//     tile j+1 loads while tile j is computed;
 //   * S = Q K^T is wgmma m64n64k16 (K read K-major) and O += P V is wgmma
-//     m64nDk16 (V read N-major; m64n256k16 at D = 256, the widest wgmma),
+//     m64nDk16 (V read N-major; m64n192k16 at D = 192, m64n256k16 at
+//     D = 256, the widest wgmma),
 //     bf16 in, fp32 accumulators in registers.  P never touches shared
 //     memory: the fp32 S accumulator packs pairwise into the A operand of
 //     the P V product (P rounds to bf16 there, where the plain version
@@ -55,12 +57,14 @@
 // holds O (128 registers), Q's fragments (64) and S (32) at once, which
 // still fits the 255 a thread may have: ptxas (sm_90a) gives 252-254 and
 // no spills, so neither O += P V in two halves nor D split over two
-// warpgroups is needed.
+// warpgroups is needed.  D = 192 (nemotron-4-340b's heads) is the same
+// design: O takes 96 registers, Q's fragments 48.
 // fp32 inputs take flash_attention_simt, on CUDA cores in fp32: the
 // tensor cores would compute in TF32, which keeps about 3 digits,
 // and the fp32 path is held to 2e-5.  The model runs in bf16, so the main
-// path never reaches it.  Its fp32 Q, K, V and P tiles take 210 KB of
-// shared memory at D = 256, under the 227 KB a block may have.  Both
+// path never reaches it.  Its fp32 Q, K, V and P tiles take 162 KB of
+// shared memory at D = 192 and 210 KB at D = 256, under the 227 KB a block
+// may have.  Both
 // kernels use the plain version's 64 x 64 tiles
 // (kernels/flash_attention.py), so all three visit the same tiles.
 #include <cuda_bf16.h>
@@ -239,7 +243,7 @@ __device__ __forceinline__ void store_rows(
 // ---------------------------------------------- bf16: warpgroup products
 
 // K and V tiles for wgmma: [BK][D] in the swizzled layout of hopper.cuh
-// (128-byte swizzle at D = 128, 64-byte below).
+// (128-byte swizzle at D = 128, 192 and 256, 64-byte below).
 template <int D>
 using KvTile = SwTile<BK, D>;
 
@@ -250,7 +254,8 @@ constexpr size_t wgmma_smem_bytes() {
 }
 
 // Blocks an SM holds by shared memory (227 KB a block at most, 228 KB an
-// SM): two up to D = 128, one at D = 256 (Q 33 KB + the K/V ring 128 KB).
+// SM): two up to D = 128, one at D = 192 (Q 25 KB + the K/V ring 96 KB)
+// and at D = 256 (Q 33 KB + the K/V ring 128 KB).
 template <int D>
 constexpr int blocks_per_sm() {
   return 2 * (wgmma_smem_bytes<D>() + 1024) <= 233472 ? 2 : 1;
@@ -600,6 +605,9 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
                            window, softcap, scale, st);
     case 128:
       return launch<T, 128>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
+                            causal, window, softcap, scale, st);
+    case 192:
+      return launch<T, 192>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
                             causal, window, softcap, scale, st);
     case 256:
       return launch<T, 256>(q, k, v, out, B, S, T_len, H, KVH, kv_len,

@@ -102,8 +102,8 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
 // 16 * warp + lane / 4 + 8 * (e / 2), column 8 * n + 2 * (lane % 4) + e % 2)
 // = a (64 x 16 bf16, from registers: each warp its 16 rows, as an mma.sync
 // A fragment) * b (16 x N bf16, from shared memory; TRANS_B = 1: N-major),
-// plus d if scale_d.  One overload for each N the kernels use (N = 256:
-// flash attention's O += P V at head_dim 256).
+// plus d if scale_d.  One overload for each N the kernels use (N = 192 and
+// 256: flash attention's O += P V at head_dim 192 and 256).
 template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[2][4],
                                          const uint32_t (&a)[4],
@@ -195,6 +195,54 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
 }
 
 template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[24][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %102, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, "
+      "%88, %89, %90, %91, %92, %93, %94, %95"
+      "}, {%96, %97, %98, %99}, %100, p, 1, 1, %101;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3]),
+        "+f"(d[16][0]), "+f"(d[16][1]), "+f"(d[16][2]), "+f"(d[16][3]),
+        "+f"(d[17][0]), "+f"(d[17][1]), "+f"(d[17][2]), "+f"(d[17][3]),
+        "+f"(d[18][0]), "+f"(d[18][1]), "+f"(d[18][2]), "+f"(d[18][3]),
+        "+f"(d[19][0]), "+f"(d[19][1]), "+f"(d[19][2]), "+f"(d[19][3]),
+        "+f"(d[20][0]), "+f"(d[20][1]), "+f"(d[20][2]), "+f"(d[20][3]),
+        "+f"(d[21][0]), "+f"(d[21][1]), "+f"(d[21][2]), "+f"(d[21][3]),
+        "+f"(d[22][0]), "+f"(d[22][1]), "+f"(d[22][2]), "+f"(d[22][3]),
+        "+f"(d[23][0]), "+f"(d[23][1]), "+f"(d[23][2]), "+f"(d[23][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "n"(TRANS_B), "r"(scale_d));
+}
+
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
                                          const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
@@ -257,18 +305,20 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
 // ------------------------------------------------------ swizzled tiles
 
 // A [ROWS][COLS] bf16 tile for wgmma's shared-memory operands: column
-// blocks of SW bytes a row (SW = 128 at 128 or 256 columns, 64 at 32 or
-// 64, 32 at 16), each block [ROWS][SW], its 16-byte chunks swizzled by the
-// row (chunk ^= row % 8 at SW = 128, (row / 2) % 4 at 64, (row / 4) % 2 at
-// 32): the layout the descriptors' swizzle modes name.  A 256-column row
-// is four 128-byte blocks, which k_major and n_major step over as they do
-// over 128 columns' two.  ROWS is a multiple of 8 and the tile's base
-// 1024-byte aligned.
+// blocks of SW bytes a row (SW = 128 at 128, 192 or 256 columns, 64 at 32
+// or 64, 32 at 16), each block [ROWS][SW], its 16-byte chunks swizzled by
+// the row (chunk ^= row % 8 at SW = 128, (row / 2) % 4 at 64, (row / 4) % 2
+// at 32): the layout the descriptors' swizzle modes name.  A 192- or
+// 256-column row is three or four 128-byte blocks, which offset, k_major
+// and n_major step over as they do over 128 columns' two: a block starts
+// at a multiple of BLOCK, itself a multiple of 1024 bytes, so the swizzle
+// of a chunk depends on its row alone in every block.  ROWS is a multiple
+// of 8 and the tile's base 1024-byte aligned.
 template <int ROWS, int COLS>
 struct SwTile {
   static_assert(COLS == 16 || COLS == 32 || COLS == 64 || COLS == 128 ||
-                    COLS == 256,
-                "SwTile: 16, 32, 64, 128 or 256 columns");
+                    COLS == 192 || COLS == 256,
+                "SwTile: 16, 32, 64, 128, 192 or 256 columns");
   static constexpr int SW = COLS >= 128 ? 128 : COLS == 16 ? 32 : 64;
   static constexpr int BLOCK = ROWS * SW;             // bytes a block
   static constexpr int BYTES = ROWS * COLS * 2;

@@ -20,16 +20,25 @@
 //     The wrapper's plan (kernels/paged_attention.py: split_plan) cuts the
 //     capacity maxp * ps into n_split ranges of `span` tokens from the shapes
 //     alone, never from lengths, so the host never waits on the card;
-//   * no shared-memory staging: a group of D * sizeof(T) / 16 lanes, at most
-//     32, takes one token, a 16-byte slice of D a lane (16 lanes at D = 128
-//     in bf16, so a warp scores two tokens at once; a whole warp at D = 256,
-//     where an fp32 lane takes two slices 128 elements apart); the dot
-//     product reduces by shuffles within the group.  Every lane group
-//     scores its tokens for the G query heads (in chunks of at most 8,
-//     whose q slices live in registers) and keeps its own online softmax
-//     (m, l) and fp32 accumulator slice in registers.  A lane issues the K
-//     and V loads of U tokens (4, or 2 when G > 2) before it uses the
-//     first: 2 * U 16-byte loads in flight (twice that for fp32 at 256);
+//   * no shared-memory staging: a group of LPT lanes takes one token, a
+//     16-byte slice of D a lane.  A row holds SL = D * sizeof(T) / 16
+//     slices; LPT is SL rounded up to a power of two, at most 32 (16 lanes
+//     at D = 128 in bf16, so a warp scores two tokens at once; a whole warp
+//     at D = 256, where an fp32 lane takes two slices 128 elements apart).
+//     At D = 192 a row is 24 slices in bf16 and 48 in fp32, and 24 lanes a
+//     token do not tile a warp: a whole warp takes the token, and the lanes
+//     whose slice lies past the row (8 of 32 in bf16; 16 of 32 on an fp32
+//     lane's second slice) load nothing and hold zeros.  So each lane keeps
+//     the D = 128 and 256 variants' 8 elements of q and of each
+//     accumulator, and their registers, where 8 lanes of three 16-byte
+//     slices would hold 24 and 16 lanes of three 8-byte slices 12; the
+//     idle lanes cost FMA slots, which the bytes' bound leaves free.  The dot product reduces by shuffles within the
+//     group.  Every lane group scores its tokens for the G query heads
+//     (in chunks of at most 8, whose q slices live in registers) and keeps
+//     its own online softmax (m, l) and fp32 accumulator slice in
+//     registers.  A lane issues the K and V loads of U tokens (4, or 2
+//     when G > 2) before it uses the first: 2 * U 16-byte loads in flight
+//     (twice that for fp32 at 256);
 //   * the lane groups of a warp merge by shuffles, the warps of a block once
 //     through shared memory;
 //   * combine in the same launch: with n_split > 1 each block writes its
@@ -81,6 +90,19 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
   *p = __float2bfloat16(x);
 }
 
+// Lanes that take one token: the row's SL 16-byte slices rounded up to a
+// power of two, at most a warp (a row of more than 32 slices takes several
+// a lane).
+__host__ __device__ constexpr int lanes_a_token(int sl) {
+  return sl > 16 ? 32 : sl > 8 ? 16 : sl > 4 ? 8 : 4;
+}
+
+// Is a lane's slice `slice` inside the row?  Always, where LPT divides SL.
+template <bool FULL, int SL>
+__device__ __forceinline__ bool live(int slice) {
+  return FULL || slice < SL;
+}
+
 template <typename T, int D, int GMAX>
 __global__ void __launch_bounds__(THREADS)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -91,10 +113,15 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                        int H, int KVH, int ps, int maxp, int span,
                        float scale, float softcap) {
   constexpr int VEC = 16 / int(sizeof(T));  // elements a 16-byte load
-  constexpr int LPT = D / VEC < 32 ? D / VEC : 32;   // lanes a token
-  constexpr int NV = D / (VEC * LPT);   // 16-byte loads a lane a row
+  constexpr int SL = D / VEC;           // 16-byte slices a row
+  constexpr int LPT = lanes_a_token(SL);
+  constexpr int NV = (SL + LPT - 1) / LPT;  // 16-byte loads a lane a row
   constexpr int EL = NV * VEC;          // elements a lane holds; its load i
-                                        // is (i * LPT + sub) * VEC + [0, VEC)
+                                        // is slice i * LPT + sub, elements
+                                        // (i * LPT + sub) * VEC + [0, VEC),
+                                        // live if that slice is below SL
+  constexpr bool FULL = SL % LPT == 0;  // every lane's every slice live
+  static_assert(D % VEC == 0 && SL >= 4, "paged_attention: head_dim");
   constexpr int TPW = 32 / LPT;         // tokens a warp scores at once
   constexpr int STEP = NW * TPW;        // tokens a block scores at once
   constexpr int U = GMAX >= 4 ? 2 : 4;  // tokens a lane group loads ahead
@@ -130,8 +157,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       const T* qh = q + (long(b) * H + kvh * G + g0 + g) * D + sub * VEC;
 #pragma unroll
       for (int u = 0; u < EL; ++u) {
-        qv[g][u] =
-            ok ? to_f32(qh[(u / VEC) * LPT * VEC + u % VEC]) * qk_scale : 0.f;
+        qv[g][u] = ok && live<FULL, SL>((u / VEC) * LPT + sub)
+                       ? to_f32(qh[(u / VEC) * LPT * VEC + u % VEC]) * qk_scale
+                       : 0.f;
         acc[g][u] = 0.f;
       }
       m[g] = NEG_INF;
@@ -152,7 +180,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                                : 0;
 #pragma unroll
         for (int i = 0; i < NV; ++i) {
-          if (ok[u]) {
+          if (ok[u] && live<FULL, SL>(i * LPT + sub)) {
             const long at = off + i * LPT * VEC;
             kr[u][i] = __ldg(reinterpret_cast<const uint4*>(k_pages + at));
             vr[u][i] = __ldg(reinterpret_cast<const uint4*>(v_pages + at));
@@ -227,8 +255,9 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       for (int g = 0; g < GMAX; ++g) {
 #pragma unroll
         for (int e = 0; e < EL; ++e)
-          sm_acc[(warp * GMAX + g) * D + ((e / VEC) * LPT + sub) * VEC +
-                 e % VEC] = acc[g][e];
+          if (live<FULL, SL>((e / VEC) * LPT + sub))
+            sm_acc[(warp * GMAX + g) * D + ((e / VEC) * LPT + sub) * VEC +
+                   e % VEC] = acc[g][e];
         if (sub == 0) {
           sm_m[warp * GMAX + g] = m[g];
           sm_l[warp * GMAX + g] = l[g];
@@ -359,6 +388,10 @@ int dispatch(const void* q, const void* k_pages, const void* v_pages,
                              n_split, span, scale, softcap, st);
     case 128:
       return launch_g<T, 128>(G, q, k_pages, v_pages, page_tables, lengths,
+                              out, scratch, tickets, B, H, KVH, ps, maxp,
+                              n_split, span, scale, softcap, st);
+    case 192:
+      return launch_g<T, 192>(G, q, k_pages, v_pages, page_tables, lengths,
                               out, scratch, tickets, B, H, KVH, ps, maxp,
                               n_split, span, scale, softcap, st);
     case 256:

@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 
 BQ, BK = 64, 64          # the CUDA kernels' tile sizes
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 
 _count_lock = threading.Lock()

@@ -25,7 +25,7 @@ from repro_torch.kernels import build
 NT = 32                  # a split's span is a multiple of this many tokens
 CPU_SMS = 132            # the H100's SM count, the plan's default off a card
 NEG_INF = -1e30
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 DTYPES = (torch.bfloat16, torch.float32)
 
 _count_lock = threading.Lock()

@@ -5,22 +5,31 @@
 
 Runs the model at its full published width on one CUDA card by default;
 ``--device cpu --reduced`` runs the smoke-test width on the CPU.
-``--layers N`` cuts the stack to its first N layers at full width (a
-model too large for one card, such as mixtral-8x7b, served as a cut).  The
-engine opens a ``repro_torch.core.connect`` session; ``--show-session``
-prints the session's per-device handle/memory accounting after the run.
+``--layers N`` cuts the stack to its first N layers at full width, and
+``--experts N`` an MoE model to its first N experts: a model too large
+for one card (mixtral-8x7b, nemotron-4-340b, jamba-1.5-large) is served as
+such a cut, every matrix at its published shape:
+
+    python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
+        --layers 8 --experts 8 --mode dynamic_pd
+
+The engine opens a ``repro_torch.core.connect`` session;
+``--show-session`` prints the session's per-device handle/memory
+accounting after the run.
 (The JAX launcher's ``--sim`` cluster simulation is not part of the port.)
 """
 from __future__ import annotations
 
 import argparse
+import os
 
 
 def run_real(arch: str, mode: str, n_requests: int, rate: float,
              prompt_len: int = 16, max_new: int = 16,
              max_num_seqs: int = 4, seed: int = 0, verbose: bool = True,
              show_session: bool = False, policy: str = "",
-             device="cuda", reduced: bool = False, layers: int = 0):
+             device="cuda", reduced: bool = False, layers: int = 0,
+             experts: int = 0):
     import dataclasses
 
     import numpy as np
@@ -35,6 +44,13 @@ def run_real(arch: str, mode: str, n_requests: int, rate: float,
         cfg = cfg.reduced()
     if layers:
         cfg = dataclasses.replace(cfg, num_layers=layers)
+    if experts:
+        if cfg.moe is None or not cfg.moe.top_k <= experts <= \
+                cfg.moe.num_experts:
+            raise ValueError(f"--experts {experts}: {cfg.name} routes "
+                             f"top-k over its experts ({cfg.moe})")
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, num_experts=experts))
     model = build_model(cfg)
     params = model.init(seed, device=device)
     rng = np.random.default_rng(seed)
@@ -79,10 +95,18 @@ def main():
                     help="the config's smoke-test width (for the CPU)")
     ap.add_argument("--layers", type=int, default=0,
                     help="serve only the first N layers (a depth cut)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="an MoE model's first N experts (a cut)")
     args = ap.parse_args()
+    # a cut that fills most of the card draws each stacked tensor in fp32
+    # before it casts: expandable segments let the allocator reuse those
+    # temporaries' memory (set before the first CUDA allocation)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     run_real(args.arch, args.mode, args.requests, args.rate,
              show_session=args.show_session, policy=args.policy,
-             device=args.device, reduced=args.reduced, layers=args.layers)
+             device=args.device, reduced=args.reduced, layers=args.layers,
+             experts=args.experts)
 
 
 if __name__ == "__main__":

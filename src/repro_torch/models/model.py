@@ -1,13 +1,14 @@
 """Model API for the port's slices: the dense decoder, Mixture-of-Experts
-decoders and attention-free Mamba-2.
+decoders, attention-free Mamba-2 and hybrid Mamba/attention stacks.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are functions of
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
     forward(params, batch, dropless=) -> (hidden [B,S,d], aux) (teacher-forced)
-    init_cache(B, max_len, device=) -> cache (list of stacked K/V dicts,
-                                       or conv/ssm state dicts for Mamba)
+    init_cache(B, max_len, device=) -> cache (one stacked dict per pattern
+                                       position: K/V for an attention
+                                       block, conv/ssm state for a Mamba one)
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
@@ -17,11 +18,15 @@ sliding windows with ring-buffer caches, local/global alternation, logit
 softcaps, post-norms and scaled embeddings; starcoder2-3b's window on
 every layer, LayerNorm and GELU; qwen2-vl-2b's VLM backbone, fed token ids
 or precomputed ``embeds`` with M-RoPE ``[3, B, S]`` positions; int8 KV
-caches (nemotron-4-340b); and the MoE FFNs of mixtral-8x7b and grok-1-314b
+caches (nemotron-4-340b); the MoE FFNs of mixtral-8x7b and grok-1-314b
 (top-k routing with per-row expert capacity, dropless in prefill and
-decode).  A config that uses a feature outside them is
+decode); and jamba-1.5-large's hybrid stack (``attn_every``: Mamba-2
+mixers with one attention block a pattern, MoE FFNs every other block, no
+positional embedding).  A config that uses a feature outside them is
 refused when the ``Model`` is built, naming the ROADMAP item that brings
-it, so nothing outside the slices is computed silently wrong.
+it, so nothing outside the slices is computed silently wrong; a hybrid
+config without its ``ssm`` block, which cannot build its Mamba mixers, is
+refused as invalid.
 """
 from __future__ import annotations
 
@@ -43,8 +48,6 @@ def _softcap(x, cap: float):
 def _unported(cfg: ModelConfig) -> str:
     """The first config feature outside the slice, with its ROADMAP item
     (queue 1), or ''."""
-    if cfg.family == Family.HYBRID or cfg.attn_every:
-        return "hybrid SSM/attention stacks (item 8)"
     if cfg.is_encdec or cfg.pos_emb == PosEmb.LEARNED:
         return "encoder-decoder and learned positions (item 9)"
     return ""
@@ -65,6 +68,11 @@ class Model:
             raise NotImplementedError(
                 f"{self.cfg.name}: {missing} is not ported yet; see "
                 f"ROADMAP.md queue 1")
+        if self.cfg.attn_every and self.cfg.ssm is None:
+            raise ValueError(
+                f"{self.cfg.name}: attn_every={self.cfg.attn_every} builds "
+                f"Mamba blocks, and the config has no ssm (SSMConfig) for "
+                f"them")
         if self.attn_impl not in L.ATTN_IMPLS:
             raise ValueError(f"attn_impl {self.attn_impl!r} not in "
                              f"{L.ATTN_IMPLS}")

@@ -1,11 +1,14 @@
-"""Decoder stack for the dense decoder-only, MoE, VLM-backbone and
-attention-free SSM families (with gemma2's local/global alternation, ring
-caches and post-norms).
+"""Decoder stack for the dense decoder-only, MoE, VLM-backbone,
+attention-free SSM and hybrid families (with gemma2's local/global
+alternation, ring caches and post-norms).
 
 The stack is described by a repeating **block pattern** (``block_pattern``
-is copied from the JAX package, so both sides name the same blocks).  As
-there, parameters and caches are one stacked tree per pattern position
-with a leading repeats axis (``[R, ...]``; caches ``[R, B, T, KVH, D]``).
+is copied from the JAX package, so both sides name the same blocks):
+jamba's is seven Mamba-2 blocks and one attention block, MoE FFNs on every
+other one.  As there, parameters and caches are one stacked tree per
+pattern position with a leading repeats axis (``[R, ...]``; an attention
+position's cache ``[R, B, T, KVH, D]``, a Mamba position's conv and SSM
+state ``[R, B, ...]``, so one stack may hold both kinds).
 A Python loop over the repeats takes the place of ``lax.scan``; each step
 indexes views of the stacked tensors, so cache writes land in place.
 """

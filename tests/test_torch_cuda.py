@@ -10,9 +10,10 @@ also runs on a machine that has only PyTorch; from the repository root:
 Tolerances follow ``tests/test_kernels.py::tol_for``: 2e-5 in fp32 (the
 same fp32 arithmetic in another summation order) and 2e-2 in bf16 (both
 sides round the fp32 result to bf16, so they may differ by a bf16 step).
-At gemma2-2b's head_dim 256 the error is also held to 1e-2 (bf16) or
-2e-5 (fp32) of the output's norm, since outputs averaged over thousands
-of keys are about as small as the 2e-2 bound; and cases whose q is scaled
+At gemma2-2b's head_dim 256 and nemotron-4-340b's 192 the error is also
+held to 1e-2 (bf16) or 2e-5 (fp32) of the output's norm, since outputs
+averaged over thousands of keys are about as small as the 2e-2 bound;
+and cases whose q is scaled
 (bf16 by 30, scores of std ~30 past the softcap of 50; fp32 by 4, as
 far as fp32's own rounding of the scores stays inside 2e-5) make the plain
 version without the cap differ by ten tolerances or more, so a kernel that
@@ -259,6 +260,67 @@ def test_flash_attention_mixtral_heads(cuda, S, window, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("mask", list(D256_MASKS))
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 129, 300])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_192(cuda, S, mask, dtype):
+    """Both kernels at head_dim 192, nemotron-4-340b's (bf16: the
+    m64n192k16 P V product over three 128-byte swizzled column blocks;
+    fp32: 162 KB of shared memory), at the 64-row tile edges, under every
+    mask, with G = 12 (24 query over 2 KV heads)."""
+    kw = dict(D256_MASKS[mask])
+    if "kv_len" in kw:
+        kw["kv_len"] = max(1, int(S * kw["kv_len"]))
+    rng = np.random.default_rng(S + 192)
+    q = on(cuda, rng.standard_normal((2, S, 24, 192)), DTYPES[dtype])
+    k = on(cuda, rng.standard_normal((2, S, 2, 192)), DTYPES[dtype])
+    v = on(cuda, rng.standard_normal((2, S, 2, 192)), DTYPES[dtype])
+    before = FA.flash_attention_cuda.launches
+    got = ops.flash_attention(q, k, v, scale=192 ** -0.5, **kw)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.launches == before + 1
+    assert got.dtype == q.dtype and got.shape == q.shape
+    want = FA.flash_attention_plain(q, k, v, scale=192 ** -0.5, **kw)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [142, 404, 891])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_nemotron_heads(cuda, S, dtype):
+    """nemotron-4-340b's heads at full width (96 query over 8 KV heads of
+    192, G = 12), causal, at the engine's prompt lengths."""
+    rng = np.random.default_rng(S + 96)
+    q = on(cuda, rng.standard_normal((1, S, 96, 192)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 8, 192)), DTYPES[dtype])
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, scale=192 ** -0.5)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, scale=192 ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S", [142, 891])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_jamba_heads(cuda, S, dtype):
+    """jamba-1.5-large's heads at full width (64 query over 8 KV heads of
+    128, G = 8), causal, with no positional embedding (none reaches the
+    kernel either way)."""
+    rng = np.random.default_rng(S + 64)
+    q = on(cuda, rng.standard_normal((1, S, 64, 128)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((1, S, 8, 128)), DTYPES[dtype])
+            for _ in range(2))
+    got = ops.flash_attention(q, k, v, scale=128 ** -0.5)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, scale=128 ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("S", [142, 404, 891])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_flash_attention_qwen2_vl_heads(cuda, S, dtype):
@@ -442,6 +504,58 @@ def test_paged_attention_head_dim_256_softcap_binds(cuda, B, H, KVH, ps,
                      dtype)
     got = ops.paged_attention(*args, scale=256 ** -0.5, softcap=50.0)
     torch.cuda.synchronize()
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,H,KVH,ps,maxp,lengths", [
+    (4, 96, 8, 64, 17, [907, 715, 602, 385]),   # nemotron's 1088-slot
+    (4, 96, 8, 64, 17, [1088, 1089, 1, 1087]),  # cache, at and past T
+    (2, 24, 2, 16, 4, [50, 7]),                 # G = 12: 8 heads, then 4
+    (3, 12, 1, 8, 5, [33, 1, 17]),              # G = 12 over one KV head
+    (1, 2, 1, 16, 60, [40]),                    # 30 splits over 2 chunks
+    (33, 96, 8, 16, 4,                          # B * KVH = 264: one split
+     [1 + (i * 13) % 64 for i in range(33)]),
+])
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_192(cuda, B, H, KVH, ps, maxp, lengths,
+                                      softcap, dtype):
+    """head_dim 192: a token's row is 24 16-byte slices in bf16 and 48 in
+    fp32, so a whole warp takes it and the lanes past the row idle (8 of
+    32 in bf16, 16 on an fp32 lane's second slice); at nemotron-4-340b's
+    heads (G = 12), ragged lengths and the split plan's edges."""
+    args = paged_inputs(cuda, np.random.default_rng(B + H + maxp + 192), B,
+                        H, KVH, 192, ps, maxp, lengths, DTYPES[dtype])
+    before = PA.paged_attention_cuda.launches
+    got = ops.paged_attention(*args, scale=192 ** -0.5, softcap=softcap)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_cuda.launches == before + 1
+    want = PA.paged_attention_plain(*args, scale=192 ** -0.5,
+                                    softcap=softcap)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths", [[907, 715, 602, 385],
+                                     [1088, 1089, 1, 1087]])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_jamba_heads(cuda, lengths, dtype):
+    """Decode at jamba-1.5-large's heads (64 query over 8 KV heads of 128,
+    G = 8) over identity pages of its 1088-slot slot cache."""
+    B, H, KVH, D, ps, maxp = 4, 64, 8, 128, 64, 17
+    rng = np.random.default_rng(lengths[1] + 8)
+    q = on(cuda, rng.standard_normal((B, H, D)), DTYPES[dtype])
+    kp, vp = (on(cuda, rng.standard_normal((B * maxp, ps, KVH, D)),
+                 DTYPES[dtype]) for _ in range(2))
+    pt = torch.arange(B * maxp, dtype=torch.int32,
+                      device=cuda).view(B, maxp)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    got = ops.paged_attention(q, kp, vp, pt, ln, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    want = PA.paged_attention_plain(q, kp, vp, pt, ln, scale=D ** -0.5)
     close(got, want, **tol_for(dtype))
     rel_close(got, want, dtype)
 
@@ -709,6 +823,51 @@ def check_kernel_path(cuda, cfg, params):
     return got, ref
 
 
+@pytest.mark.cuda
+def test_reduced_jamba_kernel_path_matches_plain_path(cuda):
+    """jamba-1.5-large at smoke width on the card (two repeats of seven
+    Mamba-2 blocks and one attention block, MoE FFNs every other block, an
+    int8 KV cache): a 32-token prefill and 16 decode steps on the kernel
+    path against the plain path's teacher-forced forward, under the MoE
+    bounds of tests/test_models_decode.py (median softmax error below
+    0.05).  Counted by mixer: flash once a prefill and paged once a decode
+    step in each attention layer, the SSD scan once a prefill in each
+    Mamba layer, on the tensor cores."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    cfg = get_config("jamba-1.5-large-398b").reduced()
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    toks = model_tokens(cuda, cfg)
+    with torch.inference_mode():
+        x, _ = plain.forward(params, {"tokens": toks}, dropless=True)
+        ref = plain._logits(params, x)[:, 31:].float()
+    cache = kernel.init_cache(2, 48, device=cuda)
+    assert [sorted(c) for c in cache] == [
+        ["k", "k_scale", "v", "v_scale"] if d.is_attn else ["conv", "ssm"]
+        for d in block_pattern(cfg)]
+    ops.reset_launch_counts()
+    lg, cache, _ = kernel.prefill(params, {"tokens": toks[:, :32]}, cache)
+    got = [lg]
+    for t in range(32, 48):
+        lg, cache = kernel.decode(params, toks[:, t], cache,
+                                  torch.full((2,), t, dtype=torch.int32,
+                                             device=cuda))
+        got.append(lg)
+    n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
+    assert ops.launch_counts() == {
+        "flash_attention": n_attn, "paged_attention": 16 * n_attn,
+        "ssd_scan": cfg.num_layers - n_attn}
+    assert SSD.ssd_scan_cuda.variant_launches["wgmma"] == \
+        cfg.num_layers - n_attn
+    got = torch.stack(got, 1).float()
+    errs = [float((got[:, i].softmax(-1) - ref[:, i].softmax(-1))
+                  .abs().max()) for i in range(got.shape[1])]
+    assert np.median(errs) < 0.05, errs
+    assert math.isfinite(sum(errs))
+
+
 def ssd_tol(dtype_name):
     return dict(rtol=2e-2, atol=2e-2) if dtype_name == "bfloat16" \
         else dict(rtol=1e-3, atol=1e-3)
@@ -742,6 +901,8 @@ def ssd_inputs(dev, seed, B, S, H, P, G, N, dtype, init):
     (2, 100, 16, 16, 1, 16, 32, True),
     (1, 300, 4, 128, 1, 128, 256, False),         # P = N = 128
     (1, 300, 4, 128, 1, 128, 256, True),
+    (1, 891, 256, 64, 1, 128, 256, False),        # jamba-1.5-large prefill:
+    (1, 891, 256, 64, 1, 128, 256, True),         # 256 heads, one group
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_matches_plain(cuda, B, S, H, P, G, N, chunk, init, dtype):

@@ -156,6 +156,24 @@ def test_paged_attention_head_dim_256_softcap_binds(dtype):
         close(got, pallas, **tol_for(dtype))
 
 
+@pytest.mark.parametrize("softcap", [0.0, 30.0])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_head_dim_192(softcap, dtype):
+    """nemotron-4-340b's decode heads: head_dim 192, G = 12 (12 query
+    heads over one KV head), ragged lengths over permuted pages."""
+    args = paged_case(np.random.default_rng(192), 3, 12, 1, 192, 16, 4,
+                      dtype=dtype, lengths=[64, 17, 1], scale_q=3.0)
+    jargs, targs = [a[0] for a in args], [a[1] for a in args]
+    kw = dict(scale=192 ** -0.5, softcap=softcap)
+    want = JR.ref_paged_attention(*jargs, **kw)
+    pallas = jax_paged(*jargs, interpret=True, **kw)
+    for got in (PA.paged_attention_plain(*targs, **kw),
+                TR.ref_paged_attention(*targs, **kw)):
+        assert got.dtype == DTYPES[dtype][1] and got.shape == (3, 12, 192)
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
+
+
 # ---------------------------------------------------------------- flash
 def flash_case(rng, B, S, H, KVH, D, dtype="float32", T=None):
     T = T or S
@@ -241,6 +259,27 @@ def test_flash_attention_head_dim_256_softcap_binds(window, dtype):
     assert_cap_binds(plain, FA.flash_attention_plain(
         qt, kt, vt, **dict(kw, softcap=0.0)), dtype)
     for got in (plain, TR.ref_flash_attention(qt, kt, vt, **kw)):
+        close(got, want, **tol_for(dtype))
+        close(got, pallas, **tol_for(dtype))
+
+
+@pytest.mark.parametrize("window,causal", [(0, True), (24, True),
+                                           (0, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_head_dim_192(window, causal, dtype):
+    """nemotron-4-340b's prefill heads: head_dim 192, G = 12 (12 query
+    heads over one KV head), a 70-token prompt across the 64-row tiles,
+    causal, windowed and not causal."""
+    args = flash_case(np.random.default_rng(192 + window), 1, 70, 12, 1,
+                      192, dtype)
+    (qj, kj, vj), (qt, kt, vt) = zip(*args)
+    kw = dict(scale=192 ** -0.5, causal=causal, window=window)
+    want = JR.ref_flash_attention(qj, kj, vj, **kw)
+    pallas = jax_flash(qj, kj, vj, block_q=32, block_kv=32, interpret=True,
+                       **kw)
+    for got in (FA.flash_attention_plain(qt, kt, vt, **kw),
+                TR.ref_flash_attention(qt, kt, vt, **kw)):
+        assert got.dtype == DTYPES[dtype][1] and got.shape == qt.shape
         close(got, want, **tol_for(dtype))
         close(got, pallas, **tol_for(dtype))
 

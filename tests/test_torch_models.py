@@ -369,11 +369,13 @@ def test_stack_cache_layout(cfgs):
 
 
 @pytest.mark.parametrize("change,item", [
-    (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2), "item 8"),
-    # a hybrid stack with MoE FFNs (jamba's) waits on item 8 too
+    # item 8's hybrid stacks (jamba-1.5-large brought them), with dense or
+    # MoE FFNs: no longer refused
+    (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2), None),
     (dict(family=Family.HYBRID, ssm=SSMConfig(), attn_every=2,
-          moe=MoEConfig(num_experts=4, top_k=2, every=2)), "item 8"),
-    (dict(attn_every=2), "item 8"),
+          moe=MoEConfig(num_experts=4, top_k=2, every=2)), None),
+    # a hybrid stack without the ssm its Mamba blocks need: invalid
+    (dict(attn_every=2), "ssm"),
     (dict(encoder_layers=2, family=Family.AUDIO), "item 9"),
     (dict(pos_emb=PosEmb.LEARNED), "item 9"),
     # item 6's variants (gemma2-2b, starcoder2-3b, qwen2-vl-2b and
@@ -388,14 +390,16 @@ def test_stack_cache_layout(cfgs):
     (dict(use_post_norm=True), None),
 ])
 def test_build_model_refuses_unported_features(cfgs, change, item):
-    """A feature outside the slices is refused, naming its ROADMAP item.
-    MoE FFNs, the VLM family, M-RoPE, int8 KV caches, the sliding window,
-    local/global alternation and post-norm (item None) are ported: such a
-    config builds, and its model runs a prefill past the window and one
-    decode step."""
+    """A feature outside the slices is refused, naming its ROADMAP item;
+    a hybrid stack without an ``ssm`` is refused as invalid, naming it.
+    Hybrid stacks, MoE FFNs, the VLM family, M-RoPE, int8 KV caches, the
+    sliding window, local/global alternation and post-norm (item None) are
+    ported: such a config builds, and its model runs a prefill past the
+    window and one decode step."""
     cfg = dataclasses.replace(cfgs[1], **change)
     if item is not None:
-        with pytest.raises(NotImplementedError, match=item):
+        error = ValueError if item == "ssm" else NotImplementedError
+        with pytest.raises(error, match=item):
             build_model(cfg)
         return
     model = build_model(cfg)

@@ -134,6 +134,21 @@ def test_full_width_init_draws_the_jax_tree(arch):
         assert sum(t.numel() for t in own) == FULL_PARAMS[arch]
 
 
+def test_nemotron_cut_init_draws_the_jax_tree():
+    """The card's nemotron-4-340b: its published width cut to 4 of 96
+    layers (fake tensors, nothing allocated) draws the JAX init's shapes
+    and dtypes, 23,253,553,152 parameters, 46.5 GB in bf16."""
+    jcfg, tcfg = (dataclasses.replace(c, num_layers=4) for c in (
+        jax_get_config("nemotron-4-340b"), get_config("nemotron-4-340b")))
+    jshapes = jax.tree.leaves(unbox(jax.eval_shape(
+        jax_build_model(jcfg).init, jax.random.PRNGKey(0))))
+    with FakeTensorMode():
+        own = list(_leaves(build_model(tcfg).init(0, device="cpu")))
+    assert [tuple(a.shape) for a in jshapes] == [tuple(t.shape) for t in own]
+    assert sum(t.numel() for t in own) == 23_253_553_152
+    assert (4, 18432, 96, 192) in [tuple(t.shape) for t in own]   # wq
+
+
 def test_starcoder2_rings_on_every_layer():
     cfg = get_config("starcoder2-3b")
     assert {d.window for d in TT.block_pattern(cfg)} == {4096}
@@ -474,3 +489,45 @@ def test_int8_cache_moves_decode_within_the_gate():
     assert all(not torch.equal(outs[0][:, i], outs[1][:, i])
                for i in range(1, outs[0].shape[1]))
     _gate(outs[0], outs[1])
+
+
+# nemotron-4-340b's published head_dim and G at smoke width: 12 query heads
+# over one KV head of 192 (d_model stays 128, so the projections widen)
+D192 = dict(head_dim=192, num_heads=12, num_kv_heads=1)
+_D192 = {}
+
+
+def _d192_setup():
+    """(JAX model, JAX params, port config, port params) of the reduced
+    nemotron-4-340b at head_dim 192, built once."""
+    if not _D192:
+        jcfg = dataclasses.replace(
+            jax_get_config("nemotron-4-340b").reduced(), **D192)
+        jm = jax_build_model(jcfg)
+        jparams = unbox(jm.init(jax.random.PRNGKey(0)))
+        tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+        tcfg = dataclasses.replace(get_config("nemotron-4-340b").reduced(),
+                                   **D192)
+        _D192.update(setup=(jm, jparams, tcfg, tparams))
+    return _D192["setup"]
+
+
+@pytest.mark.parametrize("attn_impl", ["kernel", "plain"])
+def test_head_dim_192_model_matches_jax(attn_impl):
+    """The reduced nemotron-4-340b at head_dim 192 with G = 12: the
+    teacher-forced forward, and a prefill of P = 24 positions plus decode
+    to S = 40 over its int8 cache (``kernel`` takes both kernels' plain
+    versions on the CPU), against the JAX model's teacher-forced logits."""
+    jm, jparams, tcfg, tparams = _d192_setup()
+    toks = np.random.default_rng(8).integers(0, 256, (B, S)).astype(np.int32)
+    x, _ = jax.jit(lambda p, b: jm.forward(p, b, remat=False))(
+        jparams, {"tokens": jnp.asarray(toks)})
+    ref = torch.from_numpy(np.array(jm._logits(jparams, x)))
+    tm = build_model(tcfg, attn_impl=attn_impl)
+    got = tm._logits(tparams, tm.forward(
+        tparams, {"tokens": torch.from_numpy(toks).long()})[0])
+    _gate(got, ref)
+    got, cache = _prefill_decode(tm, tparams, toks, None)
+    _gate(got, ref[:, P - 1:])
+    assert [tuple(c["k"].shape) for c in cache] == [(4, B, S, 1, 192)]
+    assert all(c["k"].dtype == torch.int8 for c in cache)
