@@ -21,7 +21,12 @@ fallback):
             head_dim 256; starcoder2-3b, G = 12 under a window on every
             layer; qwen2-vl-2b, G = 6; nemotron-4-340b, G = 12 at head_dim
             192; mixtral-8x7b, G = 4 under a window on every layer;
-            jamba-1.5-large, G = 8 with no positional embedding), with
+            jamba-1.5-large, G = 8 with no positional embedding;
+            seamless-m4t-medium, G = 1 at head_dim 64: flash not causal
+            over its encoder's 1500 frames and at 4096, its cross-attention
+            of 16 queries over 1500 keys, its decoder's causal 16, paged
+            over its 80-slot self cache and its 1500-slot cross cache of
+            4-token pages at every length the capacity), with
             scores scaled past a softcap so a kernel that dropped it would
             fail; a hybrid model's SSD scan gets cases and a time at its
             own heads (jamba-1.5-large: 256 heads over one group).  The
@@ -65,7 +70,26 @@ random weights from --seed:
             through the model's kernels, counted by mixer: every attention
             layer's flash launch under its window and paged launch over its
             own cache's capacity, as the wrappers count them, every Mamba
-            layer's SSD scan, each on the tensor cores.
+            layer's SSD scan, each on the tensor cores.  After the first
+            model's engine, its traffic again in dynamic_pd and disagg
+            under FLEX_SANITIZE=1: the hazard sanitizer must find nothing,
+            and the tokens must not change.
+Then the encoder-decoder, seamless-m4t-medium at full width (12 + 12
+layers, 681,912,320 parameters), at model level (the engine feeds token
+prompts; its prefill needs frame embeddings): 4 sequences of 1500 bf16
+frame embeddings from --seed.
+4. model    a prefill of the frames and a 16-token prompt plus 16 decode
+            steps on the kernel path against the plain path, teacher-forced
+            and step for step; then the prefill and one decode step, each
+            timed and traced.
+5. main     greedy decoding to 64 new tokens into a cache made with 1024
+   path     cross slots (the prefill must replace them with the 1500
+            frames' K/V), the launch counters reset just before and read
+            just after: flash in every encoder layer and twice in every
+            decoder layer (counted causal or not), paged twice a step in
+            every decoder layer (counted by capacity, 80 and 1500); the
+            logits against the teacher-forced forward over the generated
+            sequence.
 6. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -119,11 +143,33 @@ ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b", "starcoder2-3b",
 # served at full layer width, cut in depth (and jamba's in experts): each
 # matrix keeps its published shape.  nemotron-4-340b's 96 layers hold 341 B
 # parameters; 4 of them, the embedding and the untied head 23.3 B (46.5 GB
-# in bf16; Model._logits widens the head to an 18.9 GB fp32 copy a call).
+# in bf16; Model._logits widens the head, 18.9 GB in fp32, in 4 GiB strips).
 # mixtral-8x7b's 32 layers hold 46.7 B (93.4 GB); 8 of them 11.9 B.
 # jamba-1.5-large's 72 layers hold 398 B, one 8-layer repeat of its pattern
 # 45.1 B (90.3 GB), and that repeat with 8 of its 16 experts 25.8 B
 # (51.6 GB); num_repeats allows no depth below one pattern.
+# the encoder-decoder, served at model level (the engine feeds token
+# prompts, and it needs frame embeddings): full width, 12 + 12 layers,
+# 681,912,320 parameters (jax.eval_shape of the JAX init)
+ENCDEC = "seamless-m4t-medium"
+ENCDEC_PARAMS = 681_912_320
+ENCDEC_B = 4                  # sequences
+ENCDEC_FRAMES = 1500          # frame embeddings a sequence
+ENCDEC_PROMPT = 16            # target prompt tokens
+ENCDEC_NEW = 64               # greedy new tokens
+# the greedy run's cache: 80 self slots (the prompt and the new tokens
+# fit), made with a cross length of 1024, not the 1500 frames the
+# prefill's encoder gives: the prefill must replace the cross K/V
+ENCDEC_MAX_LEN, ENCDEC_ENC_LEN = 80, 1024
+# flash at seamless's heads: (use, B, S, T, causal, on the main path);
+# 4096 frames is the published max_position_embeddings
+ENCDEC_FLASH = (("encoder", ENCDEC_B, ENCDEC_FRAMES, ENCDEC_FRAMES, False,
+                 True),
+                ("encoder at 4096 frames", 1, 4096, 4096, False, False),
+                ("cross-attention", ENCDEC_B, ENCDEC_PROMPT, ENCDEC_FRAMES,
+                 False, True),
+                ("decoder self-attention", ENCDEC_B, ENCDEC_PROMPT,
+                 ENCDEC_PROMPT, True, True))
 CUT = {"nemotron-4-340b": dict(num_layers=4),
        "mixtral-8x7b": dict(num_layers=8),
        "jamba-1.5-large-398b": dict(num_layers=8, num_experts=8)}
@@ -148,6 +194,8 @@ TIE_EPS = 0.02                # tests/test_models_decode.py::agree_step
 MOE_MIN_AGREE = 0.7
 SSM_DECODE_EXACT = 5e-3       # tests/test_models_decode.py, mamba2
 MODES = ("passthrough", "static_colocate", "dynamic_pd", "disagg")
+# the modes run again under the hazard sanitizer, on the first model
+SANITIZED_MODES = ("dynamic_pd", "disagg")
 # the PyTorch calls that may compute a kernel's function (kernel_times)
 LIBRARY_CALLS = ("sdpa", "flex_attention")
 
@@ -375,15 +423,16 @@ def layer_windows(cfg):
     return sorted({d.window for d in block_pattern(cfg)})
 
 
-def flash_cases(prompt_lens, models):
+def flash_cases(prompt_lens, models, encdec):
     """(label, B, S, T, H, KVH, D, dtype, kwargs) — the engine's prefill
     shapes first, then the sweeps of tests/test_kernels.py, then each
     further attention model's (``models``: (cfg, its prompt lengths)) at
     its own heads, windows and softcap: its longest prefill in every kind
-    of layer, the 64-row tile edges, kv_len.  Cases whose ``q_boost``
-    scales q past the cap also check that the cap binds; ``model`` marks a
-    model's cases (also held under REL_TOL), ``timed`` the shapes timed
-    later."""
+    of layer, the 64-row tile edges, kv_len; then the encoder-decoder's
+    (``encdec``, its cfg) three prefill uses (ENCDEC_FLASH).  Cases whose
+    ``q_boost`` scales q past the cap also check that the cap binds;
+    ``model`` marks a model's cases (also held under REL_TOL), ``timed``
+    the key of a shape timed later."""
     cases = [(f"main S={s}", 1, s, s, 16, 16, 128, torch.bfloat16,
               dict(causal=True, scale=128 ** -0.5)) for s in prompt_lens]
     for S, H, KVH, D in [(64, 4, 2, 32), (100, 4, 4, 64), (33, 8, 2, 128)]:
@@ -412,7 +461,8 @@ def flash_cases(prompt_lens, models):
                               f"q*{boost:g}", 1, S, S, H, KVH, D,
                               torch.bfloat16,
                               dict(base, window=window, q_boost=boost,
-                                   timed=boost == 1.0)))
+                                   timed=(name, window) if boost == 1.0
+                                   else None)))
         for dt in (torch.float32, torch.bfloat16):
             for S_ in (1, 63, 64, 65, 129):
                 for window in (0, 40):
@@ -425,17 +475,26 @@ def flash_cases(prompt_lens, models):
                                            q_boost=boost)))
             cases.append((f"{name} kv_len=70 of T=100", 1, 48, 100, H, KVH,
                           D, dt, dict(base, causal=False, kv_len=70)))
+    H, KVH, D = encdec.num_heads, encdec.num_kv_heads, encdec.head_dim
+    for use, B, S, T, causal, _ in ENCDEC_FLASH:
+        for dt in (torch.float32, torch.bfloat16):
+            cases.append((f"{encdec.name} {use} q [{B},{S}] k/v [{B},{T}] "
+                          f"causal={causal}", B, S, T, H, KVH, D, dt,
+                          dict(causal=causal, scale=D ** -0.5,
+                               model=encdec.name,
+                               timed=((encdec.name, use)
+                                      if dt == torch.bfloat16 else None))))
     return cases
 
 
-def check_flash(prompt_lens, models, gen):
+def check_flash(prompt_lens, models, encdec, gen):
     from repro_torch.kernels import flash_attention as FA
     main_err, errs = 0.0, {}
     for label, B, S, T, H, KVH, D, dt, kw in flash_cases(prompt_lens,
-                                                         models):
+                                                         models, encdec):
         kw = dict(kw)
         boost, model = kw.pop("q_boost", 1.0), kw.pop("model", None)
-        timed = kw.pop("timed", False)
+        timed = kw.pop("timed", None)
         q = (torch.randn(B, S, H, D, generator=gen, device="cuda")
              * boost).to(dt)
         k = torch.randn(B, T, KVH, D, generator=gen, device="cuda").to(dt)
@@ -457,7 +516,7 @@ def check_flash(prompt_lens, models, gen):
         if label.startswith("main"):
             main_err = max(main_err, err)
         if timed:
-            errs[model, kw["window"]] = err
+            errs[timed] = err
         print(f"  {name}: {text}")
 
     # timing at the shortest prompt of the engine's traffic (its own line),
@@ -481,6 +540,21 @@ def check_flash(prompt_lens, models, gen):
             print(f"  flash_attention at {t['shape']}: {times_text(t)}")
             print_beside("flash_attention", t)
             extra.append(t)
+    # the encoder-decoder's three uses; the wrapper counts its launches by
+    # causality: the encoder's and the cross-attention's together (not
+    # causal), the decoder's self-attention apart
+    H, KVH, D = encdec.num_heads, encdec.num_kv_heads, encdec.head_dim
+    for use, B, S, T, causal, main_path in ENCDEC_FLASH:
+        t = time_flash(FA, S, gen, H=H, KVH=KVH, D=D, B=B, T=T,
+                       causal=causal)
+        t["model"], t["use"], t["window"] = encdec.name, use, 0
+        t["causal"], t["main_path"] = causal, main_path
+        t["shape"] = (f"{use}: q [{B},{S},{H},{D}], k/v [{B},{T},{KVH},{D}] "
+                      f"bf16, causal={causal}")
+        t["max_abs_err"] = errs[encdec.name, use]
+        print(f"  flash_attention at {t['shape']}: {times_text(t)}")
+        print_beside("flash_attention", t)
+        extra.append(t)
     S = max(prompt_lens)
     t = time_flash(FA, S, gen)
     return dict(name="flash_attention", route="cuda",
@@ -539,18 +613,21 @@ def flex_call(q, k, v, want, *, scale: float, softcap: float, mask_mod, B):
 
 
 def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
-               softcap=0.0):
-    """Kernel, plain and library times at q [1, S, H, D], k/v [1, S, KVH,
-    D] bf16, causal, beside the card's bound for the (q, k) pairs the
-    band holds.  The library calls (kernel_times picks the fastest): SDPA
-    (a window as a boolean mask, GQA by enable_gqa), and under a window
-    or a softcap flex_attention (the window as a block mask, the cap as
-    its score_mod).  SDPA has no softcap: under one it is timed apart
-    (``sdpa_without_softcap_*``, a different function)."""
-    q = torch.randn(1, S, H, D, generator=gen, device="cuda").bfloat16()
-    k, v = (torch.randn(1, S, KVH, D, generator=gen, device="cuda")
+               softcap=0.0, B=1, T=None, causal=True):
+    """Kernel, plain and library times at q [B, S, H, D], k/v [B, T, KVH,
+    D] bf16 (T = S unless given), causal or not, beside the card's bound
+    for the (q, k) pairs the band holds (S T of them a sequence when not
+    causal).  The library calls (kernel_times picks the fastest): SDPA (a
+    window as a boolean mask, no mask when not causal, GQA by
+    enable_gqa), and under a window or a softcap flex_attention (the
+    window as a block mask, the cap as its score_mod).  SDPA has no
+    softcap: under one it is timed apart (``sdpa_without_softcap_*``, a
+    different function)."""
+    T = S if T is None else T
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, T, KVH, D, generator=gen, device="cuda")
             .bfloat16() for _ in range(2))
-    kw = dict(scale=D ** -0.5, window=window, softcap=softcap)
+    kw = dict(scale=D ** -0.5, window=window, softcap=softcap, causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     want = FA.flash_attention_plain(q, k, v, **kw)
     mask = None
@@ -561,7 +638,7 @@ def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
 
     def sdpa():
         return F.scaled_dot_product_attention(
-            qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+            qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
             scale=kw["scale"], enable_gqa=KVH != H)
 
     library = {}
@@ -584,9 +661,13 @@ def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
     if softcap:
         t["sdpa_without_softcap_ms"] = time_ms(sdpa, 50)
         t["sdpa_without_softcap_device_ms"] = time_held(sdpa, 50)[0]
-    pairs = (sum(min(i + 1, window) for i in range(S)) if window
-             else S * (S + 1) // 2)                 # causal (q, k) pairs
-    flops = 4.0 * H * D * pairs
+    if not causal:
+        pairs = S * T
+    elif window:
+        pairs = sum(min(i + 1, window) for i in range(S))
+    else:
+        pairs = S * (S + 1) // 2                    # causal, S = T
+    flops = 4.0 * H * D * B * pairs
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v, out
     bound_ms, bound_by = bound(flops, nbytes)
     return dict(t, bound_ms=bound_ms, bound_by=bound_by)
@@ -605,9 +686,10 @@ def paged_inputs(B, H, KVH, D, ps, maxp, dt, gen, *, identity, lengths,
     return q, kp, vp, pt, ln
 
 
-def check_paged(max_len, prompt_lens, models, gen):
+def check_paged(max_len, prompt_lens, models, encdec, gen):
     """``models``: (cfg, its prompt lengths, its max_len) for each further
-    attention model."""
+    attention model; ``encdec``: the encoder-decoder's cfg, whose decode
+    runs the kernel over its self cache and its cross cache."""
     from repro_torch.kernels import paged_attention as PA
     from repro_torch.models.layers import page_size
     ps = page_size(max_len)
@@ -678,6 +760,25 @@ def check_paged(max_len, prompt_lens, models, gen):
                  D ** -0.5, cap, meta),
             ]
         timed += [f"{label} q*1" for label, _, _, _ in caches]
+    # the encoder-decoder's decode at its heads: the cross cache of
+    # ENCDEC_FRAMES slots (4-token pages) at every length its capacity;
+    # its self cache half way through the greedy run; and an odd encoder
+    # length, whose pages hold one token
+    H, KVH, D, name = (encdec.num_heads, encdec.num_kv_heads,
+                       encdec.head_dim, encdec.name)
+    mid = ENCDEC_PROMPT + ENCDEC_NEW // 2
+    enc_caches = [(f"{name} cross q*1", ENCDEC_FRAMES,
+                   [ENCDEC_FRAMES] * ENCDEC_B),
+                  (f"{name} self q*1", ENCDEC_MAX_LEN, [mid] * ENCDEC_B),
+                  (f"{name} cross of 1499 frames", ENCDEC_FRAMES - 1,
+                   [ENCDEC_FRAMES - 1] * ENCDEC_B)]
+    for dt in (torch.float32, torch.bfloat16):
+        for label, T, c_lens in enc_caches:
+            c_ps = page_size(T)
+            cases.append((label, ENCDEC_B, H, KVH, D, c_ps, T // c_ps, dt,
+                          True, c_lens, D ** -0.5, 0.0,
+                          dict(model=name, window=0)))
+    timed += [label for label, _, _ in enc_caches[:2]]
     main_err = 0.0
     sms = PA.sm_count(torch.device("cuda"))
     to_time = {}
@@ -918,8 +1019,9 @@ def time_ssd(SSD, shape, gen):
 # -------------------------------------------------------------------- model
 
 def prefill_decode(model, params, toks, P: int, batch=None):
-    """Prefill ``toks[:, :P]`` (or ``batch``, a VLM's first P embeds and
-    positions), then decode the rest of ``toks`` teacher-forced.  Returns
+    """Prefill ``toks[:, :P]`` (or ``batch``: a VLM's first P embeds and
+    positions, an encoder-decoder's frames and first P target tokens),
+    then decode the rest of ``toks`` teacher-forced.  Returns
     (logits [B, S-P+1, V], prefill ms, ms a decode step, the cache), the
     times on the host clock to a synchronize."""
     B, S = toks.shape
@@ -1281,13 +1383,33 @@ def print_trace(prof, per: int, host_ms: float, what: str):
     return busy_ms, n_launch, by_kernel
 
 
-def profile_prefill(cfg, params, prompt_len: int, seed: int, runs: int = 5):
-    """One prefill of a ``prompt_len``-token prompt (batch 1) into a cache
-    of that length, as the engine runs it: its host-clock time (median of
-    ``runs``), then one run traced with torch.profiler.  Returns the host
-    times and print_trace's numbers."""
+def host_and_trace(run, what: str, per: int = 1, runs: int = 5):
+    """``run`` (``per`` steps, ending in a synchronize) warmed up, timed on
+    the host clock ``runs`` times (the host clock spreads: the median is
+    reported, ms a step) and traced once with torch.profiler
+    (print_trace).  Returns (host ms a step of each run, print_trace's
+    numbers)."""
     from torch.profiler import ProfilerActivity, profile
+    run()                                           # warm up
+    host_ms = []
+    for _ in range(runs):
+        t0 = time.monotonic()
+        run()
+        host_ms.append(1e3 * (time.monotonic() - t0) / per)
+    median = float(np.median(host_ms))
+    print(f"  {what}: host clock {median!r} ms (median of {runs}"
+          + (f" runs of {per} steps" if per > 1 else "") + ": "
+          + ", ".join(f"{t:.3f}" for t in sorted(host_ms)) + ")")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+    return host_ms, print_trace(prof, per, median, what)
 
+
+def profile_prefill(cfg, params, prompt_len: int, seed: int):
+    """One prefill of a ``prompt_len``-token prompt (batch 1) into a cache
+    of that length, as the engine runs it, timed and traced
+    (host_and_trace)."""
     from repro_torch.models import build_model
     model = build_model(cfg)
     cache = model.init_cache(1, prompt_len, device="cuda")
@@ -1299,31 +1421,13 @@ def profile_prefill(cfg, params, prompt_len: int, seed: int, runs: int = 5):
         model.prefill(params, {"tokens": toks}, cache)
         torch.cuda.synchronize()
 
-    run()                                           # warm up
-    host_ms = []
-    for _ in range(runs):
-        t0 = time.monotonic()
-        run()
-        host_ms.append(1e3 * (time.monotonic() - t0))
-    what = f"prefill of {prompt_len} tokens"
-    print(f"  {what}: host clock {float(np.median(host_ms))!r} ms (median "
-          f"of {runs}: {', '.join(f'{t:.3f}' for t in sorted(host_ms))})")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    busy_ms, n_launch, by_kernel = print_trace(
-        prof, 1, float(np.median(host_ms)), what)
-    return dict(host_ms=host_ms, busy_ms=busy_ms, launches=n_launch,
-                by_kernel=by_kernel)
+    host_and_trace(run, f"prefill of {prompt_len} tokens")
 
 
 def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
     """One decode step at the engine's shape (MAX_NUM_SEQS sequences over a
-    max_len slot cache): its host-clock time, and from torch.profiler the
-    device's busy time, its kernel launches and its costliest kernels.
-    Returns (host ms, busy ms) a step."""
-    from torch.profiler import ProfilerActivity, profile
-
+    max_len slot cache), timed and traced (host_and_trace).  Returns (host
+    ms, busy ms) a step."""
     from repro_torch.models import build_model
     model = build_model(cfg)
     B = MAX_NUM_SEQS
@@ -1336,21 +1440,169 @@ def profile_decode(cfg, params, prompt_lens, max_len, steps: int = 8):
             model.decode(params, toks, cache, lens)
         torch.cuda.synchronize()
 
-    run()                                           # warm up
-    host_ms = []          # the host clock spreads: take it several times
-    for _ in range(5):
-        t0 = time.monotonic()
-        run()
-        host_ms.append(1e3 * (time.monotonic() - t0) / steps)
-    step_ms = float(np.median(host_ms))
-    what = (f"decode step at the engine's shape (batch {B}, cache {max_len}, "
-            f"{cfg.kv_cache_dtype} KV)")
-    print(f"  {what}: host clock {step_ms!r} ms (median of 5 runs of "
-          f"{steps} steps: {', '.join(f'{t:.3f}' for t in sorted(host_ms))})")
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-    return step_ms, print_trace(prof, steps, step_ms, what)[0]
+    host_ms, (busy_ms, _, _) = host_and_trace(
+        run, f"decode step at the engine's shape (batch {B}, cache "
+             f"{max_len}, {cfg.kv_cache_dtype} KV)", per=steps)
+    return float(np.median(host_ms)), busy_ms
+
+
+# ---------------------------------------------------------- encoder-decoder
+
+def encdec_inputs(cfg, seed: int, n_tokens: int):
+    """ENCDEC_B sequences of ENCDEC_FRAMES bf16 frame embeddings, N(0, 1)
+    from a torch.Generator seeded from ``seed``, and ``n_tokens`` target
+    tokens each, from numpy."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    src = torch.randn(ENCDEC_B, ENCDEC_FRAMES, cfg.d_model, generator=gen,
+                      device="cuda").bfloat16()
+    rng = np.random.default_rng(seed)
+    tgt = torch.tensor(rng.integers(0, cfg.vocab_size, (ENCDEC_B, n_tokens)),
+                       dtype=torch.long, device="cuda")
+    return src, tgt
+
+
+def check_encdec(cfg, params, seed: int) -> None:
+    """The encoder-decoder's prefill of ENCDEC_B x ENCDEC_FRAMES frames
+    and an ENCDEC_PROMPT-token prompt, plus MODEL_DECODE_STEPS decode
+    steps teacher-forced, on the kernel path against the plain path's
+    teacher-forced forward and against its own prefill plus decode, under
+    compare_logits' gates.  The cache is made with as many cross slots as
+    self slots (32), not 1500: the prefill replaces them."""
+    from repro_torch.models import build_model
+    kernel = build_model(cfg)
+    plain = build_model(cfg, attn_impl="plain")
+    P = ENCDEC_PROMPT
+    src, toks = encdec_inputs(cfg, seed + 8, P + MODEL_DECODE_STEPS)
+    batch = {"src_embeds": src, "tgt_tokens": toks[:, :P]}
+    with torch.inference_mode():
+        x, _ = plain.forward(params, {"src_embeds": src, "tgt_tokens": toks})
+        ref = plain._logits(params, x[:, P - 1:])
+    got, prefill_ms, step_ms, cache = prefill_decode(kernel, params, toks, P,
+                                                     batch=batch)
+    print(f"  model: kernel path, host clock to a synchronize: prefill "
+          f"{ENCDEC_B}x{ENCDEC_FRAMES} frames + {ENCDEC_B}x{P} tokens "
+          f"{prefill_ms!r} ms, decode step (batch {ENCDEC_B}) {step_ms!r} "
+          f"ms; cross cache {tuple(cache['cross_k'].shape)}")
+    require(cache["cross_k"].shape[2] == ENCDEC_FRAMES,
+            f"model: the prefill left a cross cache of "
+            f"{cache['cross_k'].shape[2]} slots, not the encoder's "
+            f"{ENCDEC_FRAMES}")
+    del cache
+    require(bool(torch.isfinite(got).all()), "model: non-finite logits")
+    require(tuple(got.shape) == (ENCDEC_B, MODEL_DECODE_STEPS + 1,
+                                 cfg.vocab_size),
+            f"model: logits shape {tuple(got.shape)}")
+    steps = (f"{ENCDEC_B}x{ENCDEC_FRAMES} frames, {ENCDEC_B}x{P} prompt + "
+             f"{MODEL_DECODE_STEPS} decode steps")
+    compare_logits(f"{steps}, kernel path vs plain path teacher-forced",
+                   got, ref)
+    same = prefill_decode(plain, params, toks, P, batch=batch)[0]
+    compare_logits(f"{steps}, kernel path vs plain path, the same steps",
+                   got, same)
+
+
+def run_encdec(cfg, params, seed: int):
+    """The encoder-decoder's main path, through ``Model.prefill`` and
+    ``Model.decode`` (the engine has no path for it): ENCDEC_B sequences of
+    ENCDEC_FRAMES frames and an ENCDEC_PROMPT-token prompt, then greedy
+    decoding to ENCDEC_NEW new tokens, into a cache made with
+    ENCDEC_ENC_LEN cross slots, which the prefill must replace.  The
+    launch counters are reset just before and read just after; they must
+    show flash once a prefill in every encoder layer and twice in every
+    decoder layer (the self-attention causal, the cross-attention not),
+    and paged twice a decode step in every decoder layer, once over the
+    self cache's capacity and once over the cross cache's.  The greedy
+    logits are then held against the teacher-forced forward over the
+    generated sequence (compare_logits).  Returns the launches of each
+    kernel, its launches by kind, and flash's launches that were not
+    causal."""
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels.ops import (CUDA_WRAPPERS, KIND_COUNTS,
+                                         launch_counts, reset_launch_counts)
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    src, prompt = encdec_inputs(cfg, seed + 9, ENCDEC_PROMPT)
+    cache = model.init_cache(ENCDEC_B, ENCDEC_MAX_LEN, ENCDEC_ENC_LEN,
+                             device="cuda")
+    reset_launch_counts()
+    t0 = time.monotonic()
+    lg, cache, lens = model.prefill(
+        params, {"src_embeds": src, "tgt_tokens": prompt}, cache)
+    steps, toks = [lg], [lg.argmax(-1)]
+    for i in range(ENCDEC_NEW - 1):
+        lg, cache = model.decode(params, toks[-1], cache, lens + i)
+        steps.append(lg)
+        toks.append(lg.argmax(-1))
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    counts = launch_counts()
+    kinds = {name: {kind: n for kind, n in
+                    getattr(fn, KIND_COUNTS[name]).items() if n}
+             for name, fn in CUDA_WRAPPERS.items()}
+    noncausal = FA.flash_attention_cuda.noncausal_launches
+    L, E, decodes = cfg.num_layers, cfg.encoder_layers, ENCDEC_NEW - 1
+    print(f"  main path[{cfg.name}]: prefill + {decodes} greedy decode "
+          f"steps, batch {ENCDEC_B}, wall_s={wall!r}; launches={counts} by "
+          f"kind={kinds}, flash not causal {noncausal}")
+    require(cache["cross_k"].shape[2] == ENCDEC_FRAMES,
+            f"main path: the cache made with {ENCDEC_ENC_LEN} cross slots "
+            f"holds {cache['cross_k'].shape[2]} after the prefill, not the "
+            f"encoder's {ENCDEC_FRAMES}")
+    want = {"flash_attention": E + 2 * L, "paged_attention": 2 * L * decodes,
+            "ssd_scan": 0}
+    require(counts == want, f"main path: launches {counts}, expected {want}")
+    require(noncausal == E + L, f"main path: {noncausal} flash launches not "
+                                f"causal, expected {E + L}")
+    want_pages = {ENCDEC_MAX_LEN: L * decodes, ENCDEC_FRAMES: L * decodes}
+    require(kinds["paged_attention"] == want_pages,
+            f"main path: paged launches by capacity "
+            f"{kinds['paged_attention']}, expected {want_pages}")
+    got = torch.stack(steps, 1)
+    seq = torch.cat([prompt, torch.stack(toks[:-1], 1)], 1)
+    with torch.inference_mode():
+        x, _ = model.forward(params, {"src_embeds": src, "tgt_tokens": seq})
+        ref = model._logits(params, x[:, ENCDEC_PROMPT - 1:])
+    nbytes = {name: sum(t.numel() * t.element_size()
+                        for t in _leaves(cache[name])) // ENCDEC_B
+              for name in ("self", "cross_k", "cross_v")}
+    print(f"  main path: {ENCDEC_NEW} greedy tokens a sequence, "
+          f"{len(torch.unique(seq[:, ENCDEC_PROMPT:]))} distinct; one "
+          f"sequence's cache: {nbytes} bytes")
+    compare_logits(f"greedy prefill + {decodes} decode steps vs "
+                   f"teacher-forced forward over the generated sequence",
+                   got, ref)
+    return counts, kinds, noncausal
+
+
+def profile_encdec(cfg, params, seed: int, steps: int = 8) -> None:
+    """The encoder-decoder's prefill (the encoder over ENCDEC_B x
+    ENCDEC_FRAMES frames, the cross caches, the decoder over the prompt)
+    and one decode step at batch ENCDEC_B over the self cache and the
+    cross cache, each timed and traced (host_and_trace)."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    src, prompt = encdec_inputs(cfg, seed + 10, ENCDEC_PROMPT)
+    cache = model.init_cache(ENCDEC_B, ENCDEC_MAX_LEN, device="cuda")
+    batch = {"src_embeds": src, "tgt_tokens": prompt}
+
+    def prefill():
+        model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+
+    host_and_trace(prefill, f"prefill of {ENCDEC_B}x{ENCDEC_FRAMES} frames "
+                            f"and {ENCDEC_B}x{ENCDEC_PROMPT} tokens")
+    lens = torch.full((ENCDEC_B,), ENCDEC_PROMPT, dtype=torch.int32,
+                      device="cuda")
+
+    def decode():
+        for _ in range(steps):
+            model.decode(params, prompt[:, -1], cache, lens)
+        torch.cuda.synchronize()
+
+    host_and_trace(decode, f"decode step (batch {ENCDEC_B}, self cache "
+                           f"{ENCDEC_MAX_LEN}, cross cache {ENCDEC_FRAMES})",
+                   per=steps)
 
 
 # ------------------------------------------------------------------- engine
@@ -1434,7 +1686,7 @@ def check_launches(cfg, mode: str, counts, kinds, max_len: int) -> None:
 def run_engine(cfg, params, prompts, max_len):
     """Serve ``prompts`` in every mode.  Returns the launches of each
     kernel, and each kernel's launches by kind (kind_of), summed over the
-    modes."""
+    modes, and the requests' tokens (the same in every mode)."""
     from repro_torch.kernels.ops import (CUDA_WRAPPERS, KIND_COUNTS,
                                          launch_counts, reset_launch_counts)
     from repro_torch.models import build_model
@@ -1490,7 +1742,58 @@ def run_engine(cfg, params, prompts, max_len):
         require(tokens[mode] == tokens[MODES[0]],
                 f"engine: {mode} tokens differ from {MODES[0]}")
     print(f"  engine: tokens identical across {', '.join(MODES)}")
-    return totals, kind_totals
+    return totals, kind_totals, tokens[MODES[0]]
+
+
+def run_sanitized(cfg, params, prompts, max_len, want_tokens) -> None:
+    """Serve ``prompts`` again with FLEX_SANITIZE=1 in SANITIZED_MODES:
+    each session builds a happens-before hazard sanitizer that checks
+    every op its daemons complete (disagg moves each request's KV cache
+    by memcpy_peer under a shared event), and ``Session.close()`` raises
+    on any hazard.  Every request must complete with ``want_tokens``,
+    the tokens of the unsanitized run."""
+    from repro_torch.models import build_model
+    from repro_torch.serving.engine import RealEngine
+    from repro_torch.serving.request import Request
+    model = build_model(cfg)
+    before = os.environ.get("FLEX_SANITIZE")
+    os.environ["FLEX_SANITIZE"] = "1"
+    try:
+        for mode in SANITIZED_MODES:
+            reqs = [Request(prompt_len=len(p), max_new_tokens=MAX_NEW,
+                            prompt_tokens=p, arrival_time=0.0)
+                    for p in prompts]
+            t0 = time.monotonic()
+            eng = RealEngine(model, params, mode=mode,
+                             max_num_seqs=MAX_NUM_SEQS, max_len=max_len,
+                             device="cuda")
+            try:
+                res = eng.run(reqs, timeout=600)
+                san = eng.session.sanitizer
+                require(san is not None, f"sanitize[{mode}]: the session "
+                                         f"built no sanitizer")
+                # each completed op advanced its own stream's component
+                n_ops = sum(c[k] for k, c in san._stream_clock.items())
+                hazards = list(san.hazards)
+            finally:
+                eng.shutdown()          # raises on any hazard
+            wall = time.monotonic() - t0
+            print(f"  sanitize[{cfg.name} {mode}]: completed="
+                  f"{res['completed']} hazards={len(hazards)} over {n_ops} "
+                  f"ops on {len(san._stream_clock)} streams, "
+                  f"wall_s={wall!r}")
+            require(not hazards, f"sanitize[{mode}]: {hazards}")
+            require(res["completed"] == N_REQUESTS and res["failed"] == 0,
+                    f"sanitize[{mode}]: {res['completed']}/{N_REQUESTS} "
+                    f"completed")
+            require([r.output_tokens for r in reqs] == want_tokens,
+                    f"sanitize[{mode}]: the tokens differ from the "
+                    f"unsanitized run's")
+    finally:
+        if before is None:
+            os.environ.pop("FLEX_SANITIZE")
+        else:
+            os.environ["FLEX_SANITIZE"] = before
 
 
 def main() -> int:
@@ -1555,9 +1858,11 @@ def main() -> int:
           f"{max_len}" + "".join(f"; {cfg.name}'s {lens}, max_len {n}"
                                  for cfg, lens, n in models
                                  if cfg.sliding_window))
+    encdec = get_config(ENCDEC)
     kernels = [check_flash(prompt_lens,
-                           [(cfg, lens) for cfg, lens, _ in models], gen),
-               check_paged(max_len, prompt_lens, models, gen),
+                           [(cfg, lens) for cfg, lens, _ in models], encdec,
+                           gen),
+               check_paged(max_len, prompt_lens, models, encdec, gen),
                check_ssd(prompt_lens, hybrids, gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
@@ -1605,10 +1910,14 @@ def main() -> int:
         # 5. engine (the main path: counters reset just before each mode)
         print(f"[engine] {cfg.name}: {N_REQUESTS} requests x {MAX_NEW} new "
               f"tokens, burst, max_num_seqs={MAX_NUM_SEQS}")
-        by_model[cfg.name], kinds_by_model[cfg.name] = run_engine(
+        by_model[cfg.name], kinds_by_model[cfg.name], tokens = run_engine(
             cfg, params, prompts, max_len)
         for name, n in by_model[cfg.name].items():
             launches[name] += n
+        if arch == ARCHS[0]:
+            print(f"[sanitize] {cfg.name}: the engine's traffic again under "
+                  f"FLEX_SANITIZE=1 in {', '.join(SANITIZED_MODES)}")
+            run_sanitized(cfg, params, prompts, max_len, tokens)
         # the engines' reference cycles (each replica holds its engine,
         # which holds the params) outlive run_engine until the cyclic
         # collector runs: collect them, or the next model finds the card
@@ -1619,19 +1928,56 @@ def main() -> int:
         print(f"  {cfg.name} freed: {torch.cuda.memory_allocated()} bytes "
               f"still allocated on the card")
 
+    # 4-5. the encoder-decoder, at model level: the engine feeds token
+    # prompts, and its prefill needs frame embeddings
+    t0 = time.monotonic()
+    params = build_model(encdec).init(args.seed, device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[model] {encdec.name} full width, {n_params} parameters, "
+          f"{encdec.encoder_layers} encoder + {encdec.num_layers} decoder "
+          f"layers, d_model {encdec.d_model}, {encdec.num_heads}/"
+          f"{encdec.num_kv_heads} heads of {encdec.head_dim}, initialised "
+          f"in {time.monotonic() - t0:.1f} s")
+    require(n_params == ENCDEC_PARAMS,
+            f"{encdec.name}: {n_params} parameters, not {ENCDEC_PARAMS}")
+    check_encdec(encdec, params, args.seed)
+    profile_encdec(encdec, params, args.seed)
+    print(f"[main path] {encdec.name}: {ENCDEC_B} x {ENCDEC_FRAMES} frames, "
+          f"{ENCDEC_PROMPT}-token prompts, {ENCDEC_NEW} greedy new tokens")
+    by_model[ENCDEC], kinds_by_model[ENCDEC], noncausal = run_encdec(
+        encdec, params, args.seed)
+    for name, n in by_model[ENCDEC].items():
+        launches[name] += n
+    # flash's rows at the encoder-decoder's uses: the wrapper counts the
+    # encoder's and the cross-attention's launches together (not causal),
+    # and the decoder's self-attention apart
+    causal = kinds_by_model[ENCDEC]["flash_attention"].get(0, 0) - noncausal
+    for row in kernels[0]["models"]:
+        if row["model"] == ENCDEC:
+            row["launches_of"] = ("its causal launches" if row["causal"] else
+                                  "its launches not causal (the encoder's "
+                                  "and the cross-attention's together)")
+            row["launches"] = ((causal if row["causal"] else noncausal)
+                               if row["main_path"] else 0)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
     # 6. report
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
         k["launches_by_model"] = {m: n[name] for m, n in by_model.items()}
         for row in k.get("models", []):
+            if not row.get("main_path", True):
+                continue
             # the wrapper's own count of the launches of the row's kind
             # (flash: its window; paged: its cache's capacity) in the
-            # row's model's engine runs
-            row["launches"] = kinds_by_model[row["model"]][name].get(
-                row[kind_of(name)], 0)
+            # row's model's runs on the main path
+            row.setdefault("launches", kinds_by_model[row["model"]][name]
+                           .get(row[kind_of(name)], 0))
             require(row["launches"] > 0,
-                    f"{name}: the engine never launched it on "
+                    f"{name}: the main path never launched it on "
                     f"{row['model']}'s {kind_of(name)} {row[kind_of(name)]}")
         k["passed"] = True
         if name == "ssd_scan":           # the variants the main path ran

@@ -17,6 +17,7 @@ _ARCH_MODULES: Dict[str, str] = {
     "nemotron-4-340b": "repro_torch.configs.nemotron_4_340b",
     "olmo-1b": "repro_torch.configs.olmo_1b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "starcoder2-3b": "repro_torch.configs.starcoder2_3b",
 }
 

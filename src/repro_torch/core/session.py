@@ -279,6 +279,9 @@ def connect(mode: str = "flex", devices: int = 1, *,
     sanitizer = None
     timeline = None
     if mode != "passthrough":
+        from repro_torch.analysis.hazards import HazardSanitizer, sanitize_enabled
+        if sanitize_enabled():
+            sanitizer = HazardSanitizer()   # one checker spans the session
         from repro_torch.core.profiler import Timeline, profile_enabled
         if profile_enabled():
             timeline = Timeline()           # one recorder spans the session

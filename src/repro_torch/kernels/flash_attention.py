@@ -124,8 +124,9 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float,
                          window: int = 0, softcap: float = 0.0,
                          kv_len: Optional[int] = None):
     """Launch the CUDA kernel on the current stream; raises on anything
-    the kernel does not take.  Counts its launches in ``.launches``, and
-    by the window it was given in ``.window_launches``."""
+    the kernel does not take.  Counts its launches in ``.launches``, by
+    the window it was given in ``.window_launches``, and those not causal
+    in ``.noncausal_launches``."""
     _check(q, k, v, kv_len)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
@@ -144,8 +145,10 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float,
         flash_attention_cuda.launches += 1
         counts = flash_attention_cuda.window_launches
         counts[int(window)] = counts.get(int(window), 0) + 1
+        flash_attention_cuda.noncausal_launches += not causal
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.window_launches = {}
+flash_attention_cuda.noncausal_launches = 0

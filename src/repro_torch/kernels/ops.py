@@ -73,9 +73,11 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    """Zero every wrapper's count, and its counts by kind (KIND_COUNTS)."""
+    """Zero every wrapper's count, its counts by kind (KIND_COUNTS), and
+    flash's count of launches that were not causal."""
     for name, fn in CUDA_WRAPPERS.items():
         fn.launches = 0
         kinds = getattr(fn, KIND_COUNTS[name])
         for kind in kinds:
             kinds[kind] = 0
+    _fa.flash_attention_cuda.noncausal_launches = 0

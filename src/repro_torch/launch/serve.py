@@ -13,6 +13,9 @@ such a cut, every matrix at its published shape:
     python -m repro_torch.launch.serve --arch jamba-1.5-large-398b \\
         --layers 8 --experts 8 --mode dynamic_pd
 
+An encoder-decoder (seamless-m4t-medium) is refused: the engine feeds
+token prompts, and its prefill needs frame embeddings.
+
 The engine opens a ``repro_torch.core.connect`` session;
 ``--show-session`` prints the session's per-device handle/memory
 accounting after the run.

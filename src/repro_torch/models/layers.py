@@ -1,5 +1,5 @@
 """Shared layers: norms, RoPE and M-RoPE, attention with bf16/fp32 or
-int8 KV caches, MLP (everything but cross-attention).
+int8 KV caches, the encoder-decoder's cross-attention, MLP.
 
 Plain functions on tensors in the JAX package's layouts (activations
 ``[B, S, H, D]``, projections ``[d, H, D]``, caches ``[B, T, KVH, D]``), so
@@ -427,6 +427,25 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
     else:
         out = paged_decode_attention(q, kd, vd, **kw)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+
+
+def cross_attention_forward(cfg: ModelConfig, p: Dict, x, enc_k, enc_v, *,
+                            attn_impl: str = "kernel"):
+    """Decoder cross-attention over precomputed encoder K/V (no cache
+    update), unmasked.  x: [B, S, d]; enc_k/enc_v: [B, T, KVH, D]."""
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    kw = dict(causal=False, scale=_attn_scale(cfg))
+    if attn_impl == "plain":
+        out = blocked_attention(q, enc_k, enc_v, **kw)
+    else:
+        out = ops.flash_attention(q, enc_k, enc_v, **kw)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+
+
+def cross_kv(cfg: ModelConfig, p: Dict, enc_out):
+    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
+    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    return k, v
 
 
 # --------------------------------------------------------------------------

@@ -1,14 +1,18 @@
 """Model API for the port's slices: the dense decoder, Mixture-of-Experts
-decoders, attention-free Mamba-2 and hybrid Mamba/attention stacks.
+decoders, attention-free Mamba-2, hybrid Mamba/attention stacks and the
+encoder-decoder.
 
 ``build_model(cfg)`` returns a ``Model`` whose methods are functions of
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
     forward(params, batch, dropless=) -> (hidden [B,S,d], aux) (teacher-forced)
-    init_cache(B, max_len, device=) -> cache (one stacked dict per pattern
+    init_cache(B, max_len, enc_len=0, device=)
+                                    -> cache (one stacked dict per pattern
                                        position: K/V for an attention
-                                       block, conv/ssm state for a Mamba one)
+                                       block, conv/ssm state for a Mamba
+                                       one; an encoder-decoder's stacked
+                                       self K/V and its cross K/V)
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
@@ -20,13 +24,16 @@ every layer, LayerNorm and GELU; qwen2-vl-2b's VLM backbone, fed token ids
 or precomputed ``embeds`` with M-RoPE ``[3, B, S]`` positions; int8 KV
 caches (nemotron-4-340b); the MoE FFNs of mixtral-8x7b and grok-1-314b
 (top-k routing with per-row expert capacity, dropless in prefill and
-decode); and jamba-1.5-large's hybrid stack (``attn_every``: Mamba-2
-mixers with one attention block a pattern, MoE FFNs every other block, no
-positional embedding).  A config that uses a feature outside them is
-refused when the ``Model`` is built, naming the ROADMAP item that brings
-it, so nothing outside the slices is computed silently wrong; a hybrid
-config without its ``ssm`` block, which cannot build its Mamba mixers, is
-refused as invalid.
+decode); jamba-1.5-large's hybrid stack (``attn_every``: Mamba-2 mixers
+with one attention block a pattern, MoE FFNs every other block, no
+positional embedding); and seamless-m4t-medium's encoder-decoder
+(``encoder_layers``: learned position tables, a bidirectional encoder
+over precomputed frame embeddings, a decoder with self- and
+cross-attention; its batches are ``{"src_embeds", "tgt_tokens"}``).  As
+in the JAX package, only the encoder-decoder owns position tables: a
+decoder-only config with ``pos_emb=LEARNED`` runs with no positional
+signal.  A hybrid config without its ``ssm`` block, which cannot build
+its Mamba mixers, is refused as invalid.
 """
 from __future__ import annotations
 
@@ -35,22 +42,23 @@ from typing import Any, Dict
 
 import torch
 
-from repro_torch.configs.base import Family, ModelConfig, PosEmb
+from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import require_device
+from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
+# the fp32 copy of the head that a logits call widens, at most this many
+# bytes at a time: two calls at once (disagg's prefill and decode threads
+# on one card) must not hold two whole copies of a large head
+# (nemotron-4-340b's 256000 x 18432 is 18.9 GB in fp32; every other head
+# the port serves is one chunk)
+LOGITS_CHUNK_BYTES = 4 << 30
+
+
 def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
-
-
-def _unported(cfg: ModelConfig) -> str:
-    """The first config feature outside the slice, with its ROADMAP item
-    (queue 1), or ''."""
-    if cfg.is_encdec or cfg.pos_emb == PosEmb.LEARNED:
-        return "encoder-decoder and learned positions (item 9)"
-    return ""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +71,6 @@ class Model:
     attn_impl: str = "kernel"
 
     def __post_init__(self):
-        missing = _unported(self.cfg)
-        if missing:
-            raise NotImplementedError(
-                f"{self.cfg.name}: {missing} is not ported yet; see "
-                f"ROADMAP.md queue 1")
         if self.cfg.attn_every and self.cfg.ssm is None:
             raise ValueError(
                 f"{self.cfg.name}: attn_every={self.cfg.attn_every} builds "
@@ -88,9 +91,12 @@ class Model:
         params: Dict[str, Any] = {
             "embed": L.embed_param(gen, (cfg.vocab_size, cfg.d_model),
                                    device=dev),
-            "blocks": T.stack_init(cfg, gen, device=dev),
-            "norm_final": L.norm_init(cfg, cfg.d_model, device=dev),
         }
+        if cfg.is_encdec:
+            params["encdec"] = ED.encdec_init(cfg, gen, device=dev)
+        else:
+            params["blocks"] = T.stack_init(cfg, gen, device=dev)
+            params["norm_final"] = L.norm_init(cfg, cfg.d_model, device=dev)
         if not cfg.tie_embeddings:
             params["head"] = L.dense_param(gen, (cfg.d_model, cfg.vocab_size),
                                            device=dev)
@@ -105,14 +111,22 @@ class Model:
 
     def _logits(self, params, x):
         """x: [..., d] -> logits [..., V] (fp32 products and sums, as the
-        JAX twin's preferred_element_type=float32)."""
+        JAX twin's preferred_element_type=float32).  The head is widened
+        to fp32 in chunks of at most LOGITS_CHUNK_BYTES along the vocab,
+        each a strip of the head as it lies in memory (rows of the tied
+        [V, d] embedding, columns of an untied [d, V] head)."""
         cfg = self.cfg
         if cfg.tie_embeddings:
-            logits = torch.einsum("...d,vd->...v", x.float(),
-                                  params["embed"].float())
+            head, eq, vocab_dim = params["embed"], "...d,vd->...v", 0
         else:
-            logits = torch.einsum("...d,dv->...v", x.float(),
-                                  params["head"].float())
+            head, eq, vocab_dim = params["head"], "...d,dv->...v", 1
+        V = head.shape[vocab_dim]
+        n = max(1, LOGITS_CHUNK_BYTES // (4 * cfg.d_model))
+        xf = x.float()
+        logits = torch.cat([
+            torch.einsum(eq, xf, head.narrow(vocab_dim, i,
+                                             min(n, V - i)).float())
+            for i in range(0, V, n)], dim=-1)
         return _softcap(logits, cfg.final_logit_softcap)
 
     def _inputs(self, params, batch):
@@ -130,11 +144,32 @@ class Model:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
         return x, positions
 
+    def _encdec_pass(self, params, batch, self_caches=None):
+        """Encoder, cross K/V, teacher-forced decoder over the target
+        tokens embedded with the learned positions 0..S-1.  Returns (x,
+        the cross K/V of ``ED.build_cross_cache``)."""
+        ep = params["encdec"]
+        enc_out = ED.encode(self.cfg, ep, batch["src_embeds"],
+                            attn_impl=self.attn_impl)
+        cross = ED.build_cross_cache(self.cfg, ep, enc_out)
+        B, S = batch["tgt_tokens"].shape
+        x = self._embed(params, batch["tgt_tokens"])
+        x = x + ep["pos_dec"][:S][None].to(x.dtype)
+        positions = torch.arange(S, device=x.device)[None].expand(B, S)
+        x, _ = ED.decode_forward(self.cfg, ep, x, cross, positions=positions,
+                                 self_caches=self_caches,
+                                 attn_impl=self.attn_impl)
+        return x, cross
+
     # ------------------------------------------------------------ forward
     def forward(self, params, batch, *, dropless: bool = False):
         """Teacher-forced pass to final hidden states.  Returns (x, aux):
         aux is the MoE blocks' summed load-balancing loss (zero without
-        MoE).  dropless=True routes without overflow (inference)."""
+        MoE).  dropless=True routes without overflow (inference).  An
+        encoder-decoder takes ``{"src_embeds", "tgt_tokens"}``."""
+        if self.cfg.is_encdec:
+            x, _ = self._encdec_pass(params, batch)
+            return x, x.new_zeros((), dtype=torch.float32)
         x, positions = self._inputs(params, batch)
         x, _, aux = T.stack_forward(self.cfg, params["blocks"], x,
                                     positions=positions,
@@ -144,9 +179,23 @@ class Model:
         return x, aux
 
     # -------------------------------------------------------------- cache
-    def init_cache(self, batch: int, max_len: int, *, device="cuda"):
-        return T.stack_cache_init(self.cfg, batch, max_len,
-                                  device=require_device(device))
+    def init_cache(self, batch: int, max_len: int, enc_len: int = 0, *,
+                   device="cuda"):
+        """An encoder-decoder's cache: ``self``, one stacked K/V cache of
+        ``max_len`` slots with a leading layers axis, and bf16
+        ``cross_k``/``cross_v`` [L, B, enc_len or max_len, KVH, D], which a
+        prefill replaces with its encoder's own length."""
+        cfg, dev = self.cfg, require_device(device)
+        if not cfg.is_encdec:
+            return T.stack_cache_init(cfg, batch, max_len, device=dev)
+        shape = (cfg.num_layers, batch, enc_len or max_len,
+                 cfg.num_kv_heads, cfg.head_dim)
+        return {"self": L.kv_cache_init(cfg, batch, max_len, device=dev,
+                                        lead=(cfg.num_layers,)),
+                "cross_k": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev),
+                "cross_v": torch.zeros(shape, dtype=torch.bfloat16,
+                                       device=dev)}
 
     # ------------------------------------------------------------ prefill
     @torch.inference_mode()
@@ -154,7 +203,18 @@ class Model:
         """Prompt pass.  Returns (last-token logits [B,V], cache, lengths);
         the cache is written in place.  Runs under inference mode itself:
         grad mode is thread-local, and the daemons' worker threads do not
-        inherit the caller's."""
+        inherit the caller's.
+
+        An encoder-decoder writes its self caches in place and replaces
+        ``cross_k``/``cross_v`` with its encoder's K/V, of the frames'
+        own length whatever ``enc_len`` the cache was made with, as the
+        JAX twin does."""
+        if self.cfg.is_encdec:
+            x, cross = self._encdec_pass(params, batch, cache["self"])
+            cache.update(cross)
+            B, S = batch["tgt_tokens"].shape
+            lengths = torch.full((B,), S, dtype=torch.int32, device=x.device)
+            return self._logits(params, x[:, -1]), cache, lengths
         x, positions = self._inputs(params, batch)
         B, S, _ = x.shape
         x, cache, _ = T.stack_forward(self.cfg, params["blocks"], x,
@@ -182,6 +242,14 @@ class Model:
         its slot cache while a decode is in flight (its
         ``_fill_slots_locked`` returns early while ``decode_inflight``)."""
         x = self._embed(params, tokens[:, None])
+        if self.cfg.is_encdec:
+            ep = params["encdec"]
+            pos = ep["pos_dec"][lengths.long().clamp(0, ED.POS_TABLE_LEN - 1)]
+            x, _ = ED.decode_step(self.cfg, ep, x + pos[:, None].to(x.dtype),
+                                  lengths=lengths, self_caches=cache["self"],
+                                  cross_cache=cache,
+                                  attn_impl=self.attn_impl)
+            return self._logits(params, x[:, 0]), cache
         x, cache, _ = T.stack_decode(self.cfg, params["blocks"], x,
                                      lengths=lengths, caches=cache,
                                      attn_impl=self.attn_impl)

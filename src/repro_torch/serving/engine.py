@@ -182,6 +182,13 @@ class RealEngine:
                  sample: str = "greedy", kv_chunk_layers: int = 0,
                  replicas: int = 1, cluster_policy=None,
                  compute_queues: int = 1, device="cuda"):
+        if model.cfg.is_encdec:
+            raise ValueError(
+                f"RealEngine: {model.cfg.name} is an encoder-decoder, whose "
+                f"prefill needs src_embeds (frame embeddings) beside its "
+                f"target tokens, and the engine feeds token prompts; the "
+                f"reference engine has no such path either.  Drive it "
+                f"through Model.prefill/decode")
         self.device = require_device(device)
         self.model = model
         self.params = params

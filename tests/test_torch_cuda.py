@@ -338,6 +338,65 @@ def test_flash_attention_qwen2_vl_heads(cuda, S, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,S,T,causal", [
+    (4, 1500, 1500, False),          # the encoder over 1500 frames
+    (1, 4096, 4096, False),          # at max_position_embeddings
+    (4, 16, 1500, False),            # cross-attention of a 16-token prompt
+    (4, 16, 16, True),               # the decoder's self-attention
+    (2, 100, 37, False),             # S != T off the tile edges
+    (2, 5, 1499, False),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_seamless_shapes(cuda, B, S, T, causal, dtype):
+    """seamless-m4t-medium's heads (16 over 16 of 64, G = 1) at its three
+    prefill uses, non-causal with S != T among them; each launch counted
+    by causality."""
+    rng = np.random.default_rng(S + T)
+    q = on(cuda, rng.standard_normal((B, S, 16, 64)), DTYPES[dtype])
+    k, v = (on(cuda, rng.standard_normal((B, T, 16, 64)), DTYPES[dtype])
+            for _ in range(2))
+    before = FA.flash_attention_cuda.noncausal_launches
+    got = ops.flash_attention(q, k, v, causal=causal, scale=0.125)
+    torch.cuda.synchronize()
+    assert FA.flash_attention_cuda.noncausal_launches == \
+        before + (not causal)
+    want = FA.flash_attention_plain(q, k, v, causal=causal, scale=0.125)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,lengths", [
+    (1500, [1500] * 4),              # cross: 4-token pages, full capacity
+    (80, [17, 40, 79, 80]),          # the decoder's self cache
+    (1499, [1499] * 4),              # an odd S_enc: 1-token pages
+    (37, [37] * 4),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_attention_seamless_caches(cuda, T, lengths, dtype):
+    """Decode at seamless-m4t-medium's heads (16 over 16 of 64) over a
+    dense cache of T slots viewed as identity pages of gcd(T, 64) tokens
+    (models/layers.py:page_size), as the model's decode runs it: the
+    cross-attention with every length at the capacity."""
+    from repro_torch.models.layers import page_size
+    B, H, D, ps = 4, 16, 64, page_size(T)
+    rng = np.random.default_rng(T)
+    q = on(cuda, rng.standard_normal((B, H, D)), DTYPES[dtype])
+    kp, vp = (on(cuda, rng.standard_normal((B * T // ps, ps, H, D)),
+                 DTYPES[dtype]) for _ in range(2))
+    pt = torch.arange(B * T // ps, dtype=torch.int32,
+                      device=cuda).view(B, T // ps)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    before = PA.paged_attention_cuda.capacity_launches.get(T, 0)
+    got = ops.paged_attention(q, kp, vp, pt, ln, scale=D ** -0.5)
+    torch.cuda.synchronize()
+    assert PA.paged_attention_cuda.capacity_launches[T] == before + 1
+    want = PA.paged_attention_plain(q, kp, vp, pt, ln, scale=D ** -0.5)
+    close(got, want, **tol_for(dtype))
+    rel_close(got, want, dtype)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,KVH,D,ps,maxp,identity", [
     (2, 4, 1, 32, 8, 3, False),
     (3, 8, 2, 64, 16, 4, False),
@@ -861,6 +920,50 @@ def test_reduced_jamba_kernel_path_matches_plain_path(cuda):
         "ssd_scan": cfg.num_layers - n_attn}
     assert SSD.ssd_scan_cuda.variant_launches["wgmma"] == \
         cfg.num_layers - n_attn
+    got = torch.stack(got, 1).float()
+    errs = [float((got[:, i].softmax(-1) - ref[:, i].softmax(-1))
+                  .abs().max()) for i in range(got.shape[1])]
+    assert np.median(errs) < 0.05, errs
+    assert math.isfinite(sum(errs))
+
+
+@pytest.mark.cuda
+def test_reduced_seamless_kernel_path_matches_plain_path(cuda):
+    """seamless-m4t-medium at smoke width on the card (2 encoder and 4
+    decoder layers): 12 frames and a 16-token prompt, then 8 decode steps,
+    on the kernel path against the plain path's teacher-forced forward
+    (median softmax error below 0.05).  Counted: flash once a prefill in
+    each encoder layer and twice in each decoder layer (self causal, cross
+    not), paged twice a decode step in each decoder layer (the self cache
+    and the 12-slot cross cache)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("seamless-m4t-medium").reduced()
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    rng = np.random.default_rng(3)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 24))).to(cuda)
+    src = on(cuda, rng.standard_normal((2, 12, cfg.d_model)), torch.bfloat16)
+    with torch.inference_mode():
+        x, _ = plain.forward(params, {"src_embeds": src, "tgt_tokens": toks})
+        ref = plain._logits(params, x)[:, 15:].float()
+    cache = kernel.init_cache(2, 32, device=cuda)
+    ops.reset_launch_counts()
+    lg, cache, _ = kernel.prefill(params, {"src_embeds": src,
+                                           "tgt_tokens": toks[:, :16]}, cache)
+    got = [lg]
+    for t in range(16, 24):
+        lg, cache = kernel.decode(params, toks[:, t], cache,
+                                  torch.full((2,), t, dtype=torch.int32,
+                                             device=cuda))
+        got.append(lg)
+    L, E = cfg.num_layers, cfg.encoder_layers
+    assert ops.launch_counts() == {"flash_attention": E + 2 * L,
+                                   "paged_attention": 8 * 2 * L,
+                                   "ssd_scan": 0}
+    assert FA.flash_attention_cuda.noncausal_launches == E + L
+    assert {T: n for T, n in PA.paged_attention_cuda.capacity_launches
+            .items() if n} == {32: 8 * L, 12: 8 * L}
     got = torch.stack(got, 1).float()
     errs = [float((got[:, i].softmax(-1) - ref[:, i].softmax(-1))
                   .abs().max()) for i in range(got.shape[1])]

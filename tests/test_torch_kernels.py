@@ -341,13 +341,16 @@ def test_ops_dispatch_cpu_goes_to_plain_versions():
 
 def test_reset_zeroes_the_counts_by_kind():
     """Each wrapper keeps counts by kind beside ``.launches`` (flash by
-    window, paged by slot-cache capacity, the SSD scan by variant); the
-    reset zeroes them all and keeps the SSD scan's variant names."""
+    window, paged by slot-cache capacity, the SSD scan by variant, and
+    flash's launches that were not causal); the reset zeroes them all and
+    keeps the SSD scan's variant names."""
     assert set(ops.KIND_COUNTS) == set(ops.CUDA_WRAPPERS)
     for name, fn in ops.CUDA_WRAPPERS.items():
         fn.launches = 3
         getattr(fn, ops.KIND_COUNTS[name])[7] = 3
+    FA.flash_attention_cuda.noncausal_launches = 3
     ops.reset_launch_counts()
+    assert FA.flash_attention_cuda.noncausal_launches == 0
     for name, fn in ops.CUDA_WRAPPERS.items():
         assert fn.launches == 0
         kinds = getattr(fn, ops.KIND_COUNTS[name])

@@ -343,6 +343,26 @@ def test_prefill_decode_matches_forward(models):
     assert np.mean(agree) >= 0.85
 
 
+@pytest.mark.parametrize("tied", [True, False])
+def test_logits_in_chunks_match_the_whole_head(cfgs, monkeypatch, tied):
+    """``Model._logits`` widens the head to fp32 in row chunks of at most
+    LOGITS_CHUNK_BYTES: at 100 rows a chunk (three chunks of the 256-row
+    vocab, the last ragged) it equals one product with the whole fp32
+    head, tied embedding or untied ``head`` [d, V]."""
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(cfgs[1], tie_embeddings=tied)
+    m = build_model(cfg)
+    params = m.init(0, device="cpu")
+    x = torch.randn(2, 3, cfg.d_model,
+                    generator=torch.Generator().manual_seed(0)).bfloat16()
+    head = params["embed"].t() if tied else params["head"]
+    want = torch.einsum("...d,dv->...v", x.float(), head.float())
+    monkeypatch.setattr(TM, "LOGITS_CHUNK_BYTES", 4 * cfg.d_model * 100)
+    got = m._logits(params, x)
+    assert got.shape == (2, 3, cfg.vocab_size) and got.dtype == torch.float32
+    close(got, want, **F32)
+
+
 def test_kernel_and_plain_impls_agree_on_cpu(models, cfgs):
     """attn_impl='kernel' (the kernels' plain versions on the CPU) and
     attn_impl='plain' (the JAX model's own attention) give the same model."""
@@ -376,8 +396,11 @@ def test_stack_cache_layout(cfgs):
           moe=MoEConfig(num_experts=4, top_k=2, every=2)), None),
     # a hybrid stack without the ssm its Mamba blocks need: invalid
     (dict(attn_every=2), "ssm"),
-    (dict(encoder_layers=2, family=Family.AUDIO), "item 9"),
-    (dict(pos_emb=PosEmb.LEARNED), "item 9"),
+    # item 9's encoder-decoder and learned positions (seamless-m4t-medium
+    # brought them): no longer refused
+    (dict(encoder_layers=2, family=Family.AUDIO, pos_emb=PosEmb.LEARNED),
+     None),
+    (dict(pos_emb=PosEmb.LEARNED), None),
     # item 6's variants (gemma2-2b, starcoder2-3b, qwen2-vl-2b and
     # nemotron-4-340b brought them) and item 7's MoE FFNs (mixtral-8x7b,
     # grok-1-314b): no longer refused
@@ -390,23 +413,29 @@ def test_stack_cache_layout(cfgs):
     (dict(use_post_norm=True), None),
 ])
 def test_build_model_refuses_unported_features(cfgs, change, item):
-    """A feature outside the slices is refused, naming its ROADMAP item;
-    a hybrid stack without an ``ssm`` is refused as invalid, naming it.
-    Hybrid stacks, MoE FFNs, the VLM family, M-RoPE, int8 KV caches, the
-    sliding window, local/global alternation and post-norm (item None) are
-    ported: such a config builds, and its model runs a prefill past the
-    window and one decode step."""
+    """Every feature of the configs is ported now; a hybrid stack without
+    an ``ssm`` is refused as invalid, naming it.  The encoder-decoder
+    (with its learned positions), learned positions in a decoder-only
+    config (no positional signal, as in the JAX package), hybrid stacks,
+    MoE FFNs, the VLM family, M-RoPE, int8 KV caches, the sliding window,
+    local/global alternation and post-norm (item None) build, and the
+    model runs a prefill past the window and one decode step (an
+    encoder-decoder on 12 frames beside its target tokens)."""
     cfg = dataclasses.replace(cfgs[1], **change)
     if item is not None:
-        error = ValueError if item == "ssm" else NotImplementedError
-        with pytest.raises(error, match=item):
+        with pytest.raises(ValueError, match=item):
             build_model(cfg)
         return
     model = build_model(cfg)
     params = model.init(0, device="cpu")
     toks = torch.arange(20)[None] % cfg.vocab_size
+    batch = {"tokens": toks}
+    if cfg.is_encdec:
+        frames = torch.randn(1, 12, cfg.d_model,
+                             generator=torch.Generator().manual_seed(0))
+        batch = {"src_embeds": frames.bfloat16(), "tgt_tokens": toks}
     cache = model.init_cache(1, 24, device="cpu")
-    _, cache, lens = model.prefill(params, {"tokens": toks}, cache)
+    _, cache, lens = model.prefill(params, batch, cache)
     lg, _ = model.decode(params, toks[:, -1], cache, lens)
     assert lg.shape == (1, cfg.vocab_size) and bool(torch.isfinite(lg).all())
 
