@@ -8,7 +8,14 @@ fallback):
 
 1. device   the card's name and power limit (nvidia-smi); no CUDA -> exit 1.
 2. build    compile ``src/repro_torch/kernels/csrc/*.cu`` for sm_90a.
-3. kernels  each CUDA kernel against its plain torch version on the card,
+3. kernels  each CUDA kernel against its plain torch version on the card
+            (flash also at olmo-1b's training batch, 4 x 2048, and
+            flash's backward: at olmo-1b's training shape, D = 64 not
+            causal, G = 2 and 4, a window, a softcap that binds and the
+            tile edges, each gradient within 2e-2 (bf16) or 2e-5 (fp32)
+            of its norm, after the forward's lse is held against
+            torch.logsumexp of the plain scores; its library call is
+            SDPA's backward),
             at the main path's shapes, the sweep shapes of
             ``tests/test_kernels.py`` and the edges of the kernels' tiles
             (the SSD scan also shows which variant ran: bf16 must take the
@@ -90,7 +97,22 @@ frame embeddings from --seed.
             every decoder layer (counted by capacity, 80 and 1500); the
             logits against the teacher-forced forward over the generated
             sequence.
-6. report   one ``{"kernels": [...]}`` line, then the card line, then
+Then training, olmo-1b at full published width and depth (1,176,764,416
+parameters), random weights from --seed, batches of 4 x 2048 tokens from
+the port's make_batch, AdamW, remat as the config sets it:
+6. train    one loss and gradient on the kernel path against the plain
+            path (blocked_attention under autograd) from the same
+            parameters: the loss within 1e-2, every gradient's cosine at
+            least 0.99, the global norms within 3e-2; then 15 steps of the
+            launcher's train step at lr 1e-3, warmup 3, total 40 (the
+            schedule and gate of tests/test_training.py:17-31: the loss
+            down by more than 0.5), the launch counters reset just before
+            and read just after: the forward kernel twice a layer a step
+            (the forward and remat's recompute), the backward kernel's
+            three passes once a layer a step, nothing else; each step on
+            the host clock, peak memory, tokens/s and model-FLOPs
+            utilisation, then one step traced.
+7. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -198,6 +220,30 @@ MODES = ("passthrough", "static_colocate", "dynamic_pd", "disagg")
 SANITIZED_MODES = ("dynamic_pd", "disagg")
 # the PyTorch calls that may compute a kernel's function (kernel_times)
 LIBRARY_CALLS = ("sdpa", "flex_attention")
+# the flash backward kernel against its plain version: each gradient's
+# error within this share of its norm (the same fp32 sums in another
+# order; bf16 also rounds each gradient once)
+BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
+# the forward's lse against torch.logsumexp of the plain scores (the same
+# fp32 function of the same inputs), relative and absolute
+LSE_TOL = 2e-5
+# training: olmo-1b at full published width and depth, the launcher's
+# defaults but the size (batch 4 x 2048 tokens, AdamW, remat as in the
+# config), from --seed; the schedule and the gate of
+# tests/test_training.py:17-31 (lr 1e-3, warmup 3, total 40; 15 steps, the
+# loss down by more than 0.5)
+TRAIN_ARCH = "olmo-1b"
+TRAIN_PARAMS = 1_176_764_416
+TRAIN_B, TRAIN_S = 4, 2048
+TRAIN_STEPS = 15
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=40)
+TRAIN_MIN_DROP = 0.5
+# one step's loss and gradient on the kernel path against the plain path
+# (blocked_attention under autograd) from the same parameters and batch:
+# bf16 rounds at other places on the two paths
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_MIN_COS = 0.99          # every gradient leaf's cosine
+TRAIN_GNORM_TOL = 3e-2        # relative difference of the global norms
 
 
 class SmokeFailure(RuntimeError):
@@ -475,6 +521,11 @@ def flash_cases(prompt_lens, models, encdec):
                                            q_boost=boost)))
             cases.append((f"{name} kv_len=70 of T=100", 1, 48, 100, H, KVH,
                           D, dt, dict(base, causal=False, kv_len=70)))
+    train = f"{TRAIN_ARCH} training"
+    cases.append((f"{train} q/k/v [{TRAIN_B},{TRAIN_S}]", TRAIN_B, TRAIN_S,
+                  TRAIN_S, 16, 16, 128, torch.bfloat16,
+                  dict(causal=True, scale=128 ** -0.5, model=train,
+                       timed=(train, 0))))
     H, KVH, D = encdec.num_heads, encdec.num_kv_heads, encdec.head_dim
     for use, B, S, T, causal, _ in ENCDEC_FLASH:
         for dt in (torch.float32, torch.bfloat16):
@@ -555,6 +606,14 @@ def check_flash(prompt_lens, models, encdec, gen):
         print(f"  flash_attention at {t['shape']}: {times_text(t)}")
         print_beside("flash_attention", t)
         extra.append(t)
+    # the training forward: olmo-1b's heads at its training batch
+    train = f"{TRAIN_ARCH} training"
+    t = time_flash(FA, TRAIN_S, gen, B=TRAIN_B)
+    t["model"], t["window"], t["max_abs_err"] = train, 0, errs[train, 0]
+    t["shape"] = (f"q/k/v [{TRAIN_B},{TRAIN_S},16,128] bf16 causal "
+                  f"(training's forward)")
+    print(f"  flash_attention at {t['shape']}: {times_text(t)}")
+    extra.append(t)
     S = max(prompt_lens)
     t = time_flash(FA, S, gen)
     return dict(name="flash_attention", route="cuda",
@@ -1014,6 +1073,163 @@ def time_ssd(SSD, shape, gen):
     return dict(t, bound_ms=bound_ms, bound_by=bound_by,
                 shape=f"x [{B},{S},{H},{P}] bf16, B/C [{B},{S},{G},{N}] "
                       f"bf16, state [{B},{H},{P},{N}] fp32, chunk {chunk}")
+
+
+def flash_bwd_cases():
+    """(label, B, S, H, KVH, D, dtype, kwargs) of the backward kernel: the
+    training shape of olmo-1b first (timed), seamless-m4t-medium's encoder
+    (D = 64, not causal), G = 2 and 4, a window, a softcap that binds (q
+    scaled by CAP_BOOST, as the forward's cases), and the 64-row tile
+    edges (S = 1 has dq = dk = 0, rounding noise only: S = 2 stands in)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    cases = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 16, 16, 128, bf16,
+              {}),
+             (f"{ENCDEC} encoder, not causal", ENCDEC_B, ENCDEC_FRAMES, 16,
+              16, 64, bf16, dict(causal=False)),
+             ("G=2", 1, 1024, 16, 8, 128, bf16, {}),
+             ("G=4 window 256", 1, 1024, 16, 4, 128, bf16,
+              dict(window=256))]
+    for dt in (f32, bf16):
+        cases += [("softcap 50, q*boost", 1, 300, 8, 4, 128, dt,
+                   dict(softcap=50.0, q_boost=CAP_BOOST[dt])),
+                  ("G=4 D=64 window 40 softcap 50, q*boost", 1, 300, 8, 2,
+                   64, dt, dict(window=40, softcap=50.0,
+                                q_boost=CAP_BOOST[dt])),
+                  ("G=2 D=64 not causal", 2, 200, 8, 4, 64, dt,
+                   dict(causal=False))]
+        cases += [(f"edge S={S}", 1, S, 4, 2, 128, dt, {})
+                  for S in (2, 63, 64, 65, 129)]
+    return cases
+
+
+def lse_want(q, k, *, causal=True, scale, window=0, softcap=0.0):
+    """torch.logsumexp of the plain scores: scaled, capped, masked, fp32
+    [B, H, S]."""
+    S, G = q.shape[1], q.shape[2] // k.shape[2]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(),
+                     k.float().repeat_interleave(G, dim=2)) * scale
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(S, device=q.device)
+    ok = torch.ones(S, S, dtype=torch.bool, device=q.device)
+    if causal:
+        ok &= pos[None] <= pos[:, None]
+    if window:
+        ok &= pos[None] > pos[:, None] - window
+    return torch.logsumexp(torch.where(ok, s, -1e30), dim=-1)
+
+
+def check_flash_bwd(gen):
+    """The backward kernel against its plain version at every case, from
+    the same q, k, v, dO and the forward kernel's own output and lse (the
+    lse first held against torch.logsumexp of the plain scores); then its
+    times at the training shape."""
+    from repro_torch.kernels import flash_attention as FA
+    main_err = 0.0
+    for label, B, S, H, KVH, D, dt, kw in flash_bwd_cases():
+        kw = dict(kw, scale=D ** -0.5)
+        boost = kw.pop("q_boost", 1.0)
+        q = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+             * boost).to(dt)
+        k, v = (torch.randn(B, S, KVH, D, generator=gen, device="cuda")
+                .to(dt) for _ in range(2))
+        dout = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dt)
+        name = (f"flash_attention_bwd {label} q [{B},{S},{H},{D}] k/v "
+                f"[{B},{S},{KVH},{D}] {str(dt)[6:]}")
+        out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+        want_lse = lse_want(q, k, **kw)
+        lse_err = max_err(lse, want_lse)
+        require(bool(torch.allclose(lse, want_lse, rtol=LSE_TOL,
+                                    atol=LSE_TOL)),
+                f"{name}: the forward's lse is {lse_err:.3g} from "
+                f"logsumexp of the plain scores")
+        del want_lse
+        before = dict(FA.flash_attention_bwd_cuda.pass_launches)
+        got = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+        torch.cuda.synchronize()
+        require(all(FA.flash_attention_bwd_cuda.pass_launches[p]
+                    == before[p] + 1 for p in FA.BWD_PASSES),
+                f"{name}: the passes {FA.BWD_PASSES} did not each launch "
+                f"once")
+        want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+        errs, rels = [], []
+        for grad, g, w in zip(("dq", "dk", "dv"), got, want):
+            rel = rel_err(g, w)
+            require(rel < BWD_REL_TOL[dt],
+                    f"{name}: {grad} is {rel:.3g} of its norm from the plain "
+                    f"version's (bound {BWD_REL_TOL[dt]})")
+            errs.append(max_err(g, w))
+            rels.append(rel)
+        text = (f"lse max_abs_err={lse_err:.3g}; dq/dk/dv rel_err="
+                f"{'/'.join(f'{r:.3g}' for r in rels)} max_abs_err="
+                f"{max(errs):.3g}")
+        if kw.get("softcap"):
+            o0, lse0 = FA.flash_attention_plain(q, k, v, return_lse=True,
+                                                **dict(kw, softcap=0.0))
+            uncapped = FA.flash_attention_bwd_plain(
+                q, k, v, o0, lse0, dout, **dict(kw, softcap=0.0))
+            moved = rel_err(uncapped[0], want[0])
+            require(moved > 10 * BWD_REL_TOL[dt],
+                    f"{name}: the softcap does not bind (without it dq "
+                    f"moves {moved:.3g} of its norm)")
+            text += f" (without the cap the plain dq moves {moved:.3g})"
+        if label == f"{TRAIN_ARCH} training":
+            main_err = max(errs)
+        print(f"  {name}: {text}")
+        del q, k, v, dout, out, lse, got, want
+    t = time_flash_bwd(FA, gen)
+    return dict(name="flash_attention_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                replaces="src/repro/models/layers.py:170",
+                replaces_note=("no Pallas kernel has a backward: the JAX "
+                               "model trains through blocked_attention, "
+                               "which XLA differentiates"),
+                max_abs_err=main_err, **t)
+
+
+def time_flash_bwd(FA, gen):
+    """Kernel, plain and library times of the backward at olmo-1b's
+    training shape (bf16, causal), beside the card's bound: five products
+    of 2 D operations a (q, k) pair and head; q, k, v, o, dO and lse read
+    once, dq, dk, dv written once.  The library call is SDPA's backward
+    (``torch.autograd.grad`` through one SDPA forward, kept with
+    retain_graph), held against the plain version first."""
+    B, S, H, D = TRAIN_B, TRAIN_S, 16, 128
+    kw = dict(causal=True, scale=D ** -0.5)
+    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                     .bfloat16() for _ in range(4))
+    out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            scale=kw["scale"])
+    dout_t = dout.transpose(1, 2)
+
+    def sdpa_backward():
+        return torch.autograd.grad(o_sdpa, (qt, kt, vt), dout_t,
+                                   retain_graph=True)
+
+    # the same function if each gradient is within the kernel's own bound
+    rels = [rel_err(g.transpose(1, 2), w)
+            for g, w in zip(sdpa_backward(), want)]
+    agrees = all(r < BWD_REL_TOL[torch.bfloat16] for r in rels)
+    print(f"    sdpa backward against the plain version: dq/dk/dv rel_err="
+          f"{'/'.join(f'{r:.3g}' for r in rels)}: "
+          + ("the same function" if agrees else
+             "DISAGREES, so no library time is reported for it"))
+    library = {"sdpa_backward": sdpa_backward} if agrees else {}
+    del want
+    t = kernel_times(
+        lambda: FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
+        lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
+        library, iters=10)
+    pairs = S * (S + 1) // 2
+    flops = 10.0 * H * D * B * pairs
+    nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes)
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                shape=f"q/k/v/dO [{B},{S},{H},{D}] bf16 causal (training)")
 
 
 # -------------------------------------------------------------------- model
@@ -1518,8 +1734,7 @@ def run_encdec(cfg, params, seed: int):
     kernel, its launches by kind, and flash's launches that were not
     causal."""
     from repro_torch.kernels import flash_attention as FA
-    from repro_torch.kernels.ops import (CUDA_WRAPPERS, KIND_COUNTS,
-                                         launch_counts, reset_launch_counts)
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     model = build_model(cfg)
     src, prompt = encdec_inputs(cfg, seed + 9, ENCDEC_PROMPT)
@@ -1537,9 +1752,7 @@ def run_encdec(cfg, params, seed: int):
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     counts = launch_counts()
-    kinds = {name: {kind: n for kind, n in
-                    getattr(fn, KIND_COUNTS[name]).items() if n}
-             for name, fn in CUDA_WRAPPERS.items()}
+    kinds = launch_kinds()
     noncausal = FA.flash_attention_cuda.noncausal_launches
     L, E, decodes = cfg.num_layers, cfg.encoder_layers, ENCDEC_NEW - 1
     print(f"  main path[{cfg.name}]: prefill + {decodes} greedy decode "
@@ -1549,8 +1762,8 @@ def run_encdec(cfg, params, seed: int):
             f"main path: the cache made with {ENCDEC_ENC_LEN} cross slots "
             f"holds {cache['cross_k'].shape[2]} after the prefill, not the "
             f"encoder's {ENCDEC_FRAMES}")
-    want = {"flash_attention": E + 2 * L, "paged_attention": 2 * L * decodes,
-            "ssd_scan": 0}
+    want = {"flash_attention": E + 2 * L, "flash_attention_bwd": 0,
+            "paged_attention": 2 * L * decodes, "ssd_scan": 0}
     require(counts == want, f"main path: launches {counts}, expected {want}")
     require(noncausal == E + L, f"main path: {noncausal} flash launches not "
                                 f"causal, expected {E + L}")
@@ -1626,6 +1839,14 @@ def path_kernels(cfg):
     return kernels
 
 
+def launch_kinds():
+    """Each wrapper's launches by kind (KIND_COUNTS), the kinds counted."""
+    from repro_torch.kernels.ops import CUDA_WRAPPERS, KIND_COUNTS
+    return {name: {kind: n for kind, n in
+                   getattr(fn, KIND_COUNTS[name]).items() if n}
+            for name, fn in CUDA_WRAPPERS.items()}
+
+
 def kind_of(name: str) -> str:
     """What a kernel's wrapper counts its launches by: "window" (flash),
     "capacity" (paged) or "variant" (the SSD scan)."""
@@ -1687,8 +1908,8 @@ def run_engine(cfg, params, prompts, max_len):
     """Serve ``prompts`` in every mode.  Returns the launches of each
     kernel, and each kernel's launches by kind (kind_of), summed over the
     modes, and the requests' tokens (the same in every mode)."""
-    from repro_torch.kernels.ops import (CUDA_WRAPPERS, KIND_COUNTS,
-                                         launch_counts, reset_launch_counts)
+    from repro_torch.kernels.ops import (CUDA_WRAPPERS, launch_counts,
+                                         reset_launch_counts)
     from repro_torch.models import build_model
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.request import Request
@@ -1716,9 +1937,7 @@ def run_engine(cfg, params, prompts, max_len):
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
         counts = launch_counts()
-        kinds = {name: {kind: n for kind, n in
-                        getattr(fn, KIND_COUNTS[name]).items() if n}
-                 for name, fn in CUDA_WRAPPERS.items()}
+        kinds = launch_kinds()
         for name, n in counts.items():
             totals[name] += n
             for kind, m in kinds[name].items():
@@ -1796,6 +2015,157 @@ def run_sanitized(cfg, params, prompts, max_len, want_tokens) -> None:
             os.environ["FLEX_SANITIZE"] = before
 
 
+# ----------------------------------------------------------------- training
+
+def train_batch(cfg, step: int, seed: int):
+    from repro_torch.training import make_batch
+    return {k: torch.from_numpy(v).cuda() for k, v in
+            make_batch(cfg, TRAIN_B, TRAIN_S, step=step, seed=seed).items()}
+
+
+def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
+    """Gate a training run's launches: every attention layer's forward
+    kernel twice a step (the forward, and remat's recompute in the
+    backward pass), its backward kernel once a step in each of its three
+    passes, and nothing else."""
+    from repro_torch.kernels import flash_attention as FA
+    L = cfg.num_layers
+    want = {"flash_attention": 2 * L * steps,
+            "flash_attention_bwd": L * steps,
+            "paged_attention": 0, "ssd_scan": 0}
+    require(counts == want, f"{what}: launches {counts}, expected {want}")
+    passes = {p: L * steps for p in FA.BWD_PASSES}
+    require(kinds["flash_attention_bwd"] == passes,
+            f"{what}: backward passes {kinds['flash_attention_bwd']}, "
+            f"expected {passes}")
+    print(f"  {what}: launches {counts}, backward passes "
+          f"{kinds['flash_attention_bwd']}")
+
+
+def check_train_step(cfg, params, seed: int) -> None:
+    """One loss and gradient of the first batch on the kernel path (flash
+    forward and backward kernels, remat) against the plain path
+    (blocked_attention under autograd), from the same parameters."""
+    from repro_torch import tree as TR
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training.optimizer import global_norm
+    from repro_torch.training.train_step import loss_and_grads
+    batch = train_batch(cfg, 0, seed)
+    reset_launch_counts()
+    loss_k, _, grads_k = loss_and_grads(build_model(cfg), params, batch)
+    torch.cuda.synchronize()
+    train_launch_counts(cfg, launch_counts(), launch_kinds(), 1,
+                        "train check, kernel path")
+    loss_p, _, grads_p = loss_and_grads(
+        build_model(cfg, attn_impl="plain"), params, batch)
+    dl = abs(float(loss_k) - float(loss_p))
+    require(dl < TRAIN_LOSS_TOL,
+            f"train check: loss {float(loss_k)!r} on the kernel path, "
+            f"{float(loss_p)!r} on the plain path")
+    worst = (2.0, "")
+    for (path, a), b in zip(TR.flatten_with_paths(grads_k),
+                            TR.leaves(grads_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        worst = min(worst, (cos, path))
+    require(worst[0] >= TRAIN_MIN_COS,
+            f"train check: gradient {worst[1]}'s cosine with the plain "
+            f"path's is {worst[0]:.4f} (bound {TRAIN_MIN_COS})")
+    gk, gp = float(global_norm(grads_k)), float(global_norm(grads_p))
+    dn = abs(gk - gp) / gp
+    require(dn <= TRAIN_GNORM_TOL,
+            f"train check: global gradient norm {gk!r} against {gp!r}")
+    print(f"  train check: loss {float(loss_k)!r} kernel path, "
+          f"{float(loss_p)!r} plain path (|diff| {dl:.3g}); worst "
+          f"gradient cosine {worst[0]:.5f} ({worst[1]}); global norm "
+          f"{gk!r} against {gp!r} (rel diff {dn:.3g})")
+
+
+def run_train(seed: int):
+    """olmo-1b at full width: the kernel path against the plain path on
+    one step, then TRAIN_STEPS steps of the launcher's train step (the
+    main path: counters reset just before, read just after), each timed on
+    the host clock; then one more step traced.  Returns the run's launch
+    counts and counts by kind."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    from torch.profiler import ProfilerActivity, profile
+    cfg = get_config(TRAIN_ARCH)
+    model = build_model(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
+    t0 = time.monotonic()
+    params, opt = init_train_state(model, tcfg, seed, device="cuda")
+    n_params = sum(t.numel() for t in TR.leaves(params))
+    print(f"[train] {cfg.name} full width, {n_params} parameters, "
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.num_heads} heads of {cfg.head_dim}, remat={cfg.remat}, "
+          f"batch {TRAIN_B} x {TRAIN_S} tokens, AdamW {TRAIN_OPT}, "
+          f"initialised in {time.monotonic() - t0:.1f} s")
+    require(n_params == TRAIN_PARAMS,
+            f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS}")
+    check_train_step(cfg, params, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    step = make_train_step(model, tcfg)
+    batches = [train_batch(cfg, i, seed) for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, host_ms = [], []
+    reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batches[i])
+        losses.append(float(m["loss"]))           # waits for the step
+        host_ms.append(1e3 * (time.monotonic() - t0))
+        print(f"  train step {i}: loss {losses[-1]!r} grad_norm "
+              f"{float(m['grad_norm']):.4g} lr {float(m['lr']):.3g} "
+              f"host {host_ms[-1]:.1f} ms")
+    counts, kinds = launch_counts(), launch_kinds()
+    train_launch_counts(cfg, counts, kinds, TRAIN_STEPS,
+                        f"train main path, {TRAIN_STEPS} steps")
+    require(losses[-1] < losses[0] - TRAIN_MIN_DROP,
+            f"train: loss {losses[0]!r} -> {losses[-1]!r}, not down by "
+            f"{TRAIN_MIN_DROP}")
+    peak = torch.cuda.max_memory_allocated()
+    # the steps after the first (the first pays for cuBLAS and allocator
+    # warm-up)
+    median = float(np.median(host_ms[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2
+    attn = 12.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * \
+        TRAIN_B * pairs
+    model_flops = 6.0 * n_params * tokens + attn
+    print(f"  train: loss {losses[0]!r} -> {losses[-1]!r} in {TRAIN_STEPS} "
+          f"steps; host clock {median!r} ms a step (median of steps 1-"
+          f"{TRAIN_STEPS - 1}: "
+          + ", ".join(f"{t:.1f}" for t in sorted(host_ms[1:])) + ")")
+    print(f"  train: peak memory {peak} bytes; {tokens / median * 1e3!r} "
+          f"tokens/s; model FLOPs {model_flops:.4g} a step (6 x parameters "
+          f"x tokens + 12 L H D B pairs of attention, remat not counted): "
+          f"{model_flops / (median * 1e-3) / 1e12!r} TFLOP/s, MFU "
+          f"{model_flops / (median * 1e-3) / PEAK_BF16_FLOPS!r} of "
+          f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        params, opt, m = step(params, opt, batches[TRAIN_STEPS])
+        float(m["loss"])
+        traced_ms = 1e3 * (time.monotonic() - t0)
+    print(f"  train step, traced: host clock {traced_ms!r} ms (under the "
+          f"profiler)")
+    print_trace(prof, 1, median, "train step")
+    del params, opt, batches, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, kinds
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1834,7 +2204,7 @@ def main() -> int:
         serialised += "C7519" in line    # wgmma fenced by ptxas
     print(f"  ptxas injected {serialised} warpgroup.arrive fences")
 
-    # 3. kernels against their plain versions
+    # 3. kernels against their plain versions (flash's backward too)
     from repro_torch.models import build_model
     cfgs = [cut_config(get_config(a), **CUT.get(a, {})) for a in ARCHS]
     # the prompt lengths come first from the seed: the same for every vocab
@@ -1863,7 +2233,8 @@ def main() -> int:
                            [(cfg, lens) for cfg, lens, _ in models], encdec,
                            gen),
                check_paged(max_len, prompt_lens, models, encdec, gen),
-               check_ssd(prompt_lens, hybrids, gen)]
+               check_ssd(prompt_lens, hybrids, gen),
+               check_flash_bwd(gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
@@ -1963,7 +2334,13 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. report
+    # 6. training: olmo-1b at full width, the forward and backward kernels
+    train = f"{TRAIN_ARCH} training"
+    by_model[train], kinds_by_model[train] = run_train(args.seed)
+    for name, n in by_model[train].items():
+        launches[name] += n
+
+    # 7. report
     for k in kernels:
         name = k["name"]
         k["launches"] = launches[name]
@@ -1980,6 +2357,8 @@ def main() -> int:
                     f"{name}: the main path never launched it on "
                     f"{row['model']}'s {kind_of(name)} {row[kind_of(name)]}")
         k["passed"] = True
+        if name == "flash_attention_bwd":    # each pass, in training
+            k["pass_launches"] = kinds_by_model[train][name]
         if name == "ssd_scan":           # the variants the main path ran
             k["variant_launches"] = {v: sum(
                 kinds[name].get(v, 0) for kinds in kinds_by_model.values())

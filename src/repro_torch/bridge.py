@@ -11,6 +11,12 @@ the JAX package, with its leaves given as numpy arrays (or anything
 * bfloat16 arrays travel as their raw 16-bit patterns (a uint16 view,
   reinterpreted as ``torch.bfloat16``), so no value is rounded twice.
 
+``opt_state_from_numpy(state, device=)`` does the same for the JAX
+package's AdamW state (``adamw_init``/``adamw_update``: moments ``m`` and
+``v`` shaped like the parameters, and the int32 ``step``), so one AdamW
+step can start from the same parameters, gradients and moments on both
+sides.
+
 The bridge itself imports no JAX; only the tests hand it JAX arrays.
 """
 from __future__ import annotations
@@ -36,3 +42,14 @@ def params_from_numpy(tree, *, device="cpu"):
     if isinstance(tree, (list, tuple)):
         return [params_from_numpy(v, device=device) for v in tree]
     return tensor_from_numpy(tree, device=device)
+
+
+def opt_state_from_numpy(state, *, device="cpu"):
+    """The JAX AdamW state ``{"m", "v", "step"}`` as the port's."""
+    if set(state) != {"m", "v", "step"}:
+        raise ValueError(f"an AdamW state has keys m, v and step, got "
+                         f"{sorted(state)}")
+    return {"m": params_from_numpy(state["m"], device=device),
+            "v": params_from_numpy(state["v"], device=device),
+            "step": tensor_from_numpy(np.asarray(state["step"], np.int32),
+                                      device=device)}

@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -29,10 +31,14 @@ LIB_NAME = "libflexnpu_kernels.so"
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every exported function (each returns a cudaError_t)
 SIGNATURES = {
-    # q, k, v, out, B, S, T, H, KVH, D, kv_len, causal, window, softcap,
-    # scale, stream
-    "flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                        _F, _F, _P],
+    # q, k, v, out, lse (or NULL), B, S, T, H, KVH, D, kv_len, causal,
+    # window, softcap, scale, stream
+    "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _F, _F, _P],
+    # q, k, v, o, lse, dout, dq, dk, dv, delta (workspace), B, S, T, H, KVH,
+    # D, causal, window, softcap, scale, stream
+    "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, scratch, tickets, B,
     # H, KVH, D, ps, maxp, n_split, span, scale, softcap, stream
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -119,6 +125,21 @@ def load() -> ctypes.CDLL:
                     fn.restype = ctypes.c_int
             _lib = lib
         return _lib
+
+
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would have to carry a gradient through a launch
+    here: a kernel's output, written through a raw pointer, has no
+    ``grad_fn``, so a backward pass would leave the inputs without a
+    gradient and say nothing.  Only ``kernels.ops.FlashAttentionFn``, whose
+    forward runs with grad disabled, gives a kernel a backward."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad
+                                       for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: called with grad enabled on inputs that require "
+            f"grad, but the CUDA kernel's output carries no gradient; "
+            f"train through kernels.ops (flash attention has a backward "
+            f"kernel), or call it under torch.no_grad()")
 
 
 def check(err: int, kernel: str) -> None:

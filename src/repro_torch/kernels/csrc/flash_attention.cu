@@ -7,7 +7,10 @@
 // and kv_len masking the tail of the keys.
 //
 // Layouts: q/out [B, S, H, D], k/v [B, T, KVH, D], all contiguous; bf16 or
-// fp32 in, fp32 scores / m / l / acc, output in q's type.
+// fp32 in, fp32 scores / m / l / acc, output in q's type.  Given an lse
+// pointer (training: flash_attention_bwd.cu recomputes P from it), each
+// row's log-sum-exp m + log l in natural units, fp32 [B, H, S]; the serving
+// path passes NULL and writes nothing more.
 //
 // What bounds it on this card: for a long prompt the operations (4 * S^2/2 *
 // H * D for causal attention against ~2 * S * H * D * 2 bytes of
@@ -79,6 +82,7 @@ constexpr int BQ = 64;            // query rows per block
 constexpr int BK = 64;            // keys per KV tile
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
 // ------------------------------------------------ the tiles a q tile visits
 
@@ -209,17 +213,23 @@ __device__ __forceinline__ void p_fragment(const float (&s)[BK / 8][4],
 }
 
 // The block's output rows: the warp's 16 rows of O / l through its own rows
-// of Qs, then 16-byte stores of the rows before S.
+// of Qs, then 16-byte stores of the rows before S.  With lse_rows (the
+// warp's first row of the [S] log-sum-exp row of its head; NULL: not
+// asked for), each row's natural-unit log-sum-exp ln 2 * (m + log2 l), m
+// and l being in log2 units here.
 template <int D>
 __device__ __forceinline__ void store_rows(
-    float (&o)[D / 8][4], float (&l)[2], __nv_bfloat16* Ow,
-    __nv_bfloat16* __restrict__ out_rows, long stride, int valid, int lane) {
+    float (&o)[D / 8][4], const float (&m)[2], float (&l)[2],
+    __nv_bfloat16* Ow, __nv_bfloat16* __restrict__ out_rows, long stride,
+    float* __restrict__ lse_rows, int valid, int lane) {
   constexpr int RS = q_row<D>();
   const int g = lane / 4, c = lane % 4;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (lse_rows != nullptr && c == 0 && g + 8 * r < valid)
+      lse_rows[g + 8 * r] = LN2 * (m[r] + log2f(l[r]));
     l[r] = 1.f / fmaxf(l[r], 1e-30f);
   }
 #pragma unroll
@@ -272,7 +282,8 @@ __global__ void __launch_bounds__(WG_THREADS, blocks_per_sm<D>())
 flash_attention_wgmma(const __nv_bfloat16* __restrict__ q,
                       const __nv_bfloat16* __restrict__ k,
                       const __nv_bfloat16* __restrict__ v,
-                      __nv_bfloat16* __restrict__ out, int S, int T_len,
+                      __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int S, int T_len,
                       int H, int KVH, int kv_len, int causal, int window,
                       float softcap, float scale) {
   using Tile = KvTile<D>;
@@ -377,9 +388,12 @@ flash_attention_wgmma(const __nv_bfloat16* __restrict__ q,
   }
   cp_async_wait<0>();                // no copy in flight (lo > hi: Q only)
   __syncthreads();
-  store_rows<D>(o, l, Qs + row0 * RS,
+  store_rows<D>(o, m, l, Qs + row0 * RS,
                 out + (long(b) * S + q_start + row0) * q_stride + long(h) * D,
-                q_stride, S - q_start - row0, lane);
+                q_stride,
+                lse == nullptr ? nullptr
+                               : lse + (long(b) * H + h) * S + q_start + row0,
+                S - q_start - row0, lane);
 }
 
 // ------------------------------------------------------ fp32: CUDA cores
@@ -407,8 +421,9 @@ template <int D>
 __global__ void __launch_bounds__(SIMT_THREADS)
 flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ out,
-                     int S, int T_len, int H, int KVH, int kv_len,
-                     int causal, int window, float softcap, float scale) {
+                     float* __restrict__ lse, int S, int T_len, int H,
+                     int KVH, int kv_len, int causal, int window,
+                     float softcap, float scale) {
   constexpr int DP = D + 1;
   constexpr int AD = D / TX;      // acc columns per thread
   extern __shared__ float smem[];
@@ -535,6 +550,8 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
     const int s = q_start + ty * RQ + i;
     if (s >= S) continue;
     const float denom = fmaxf(l[i], 1e-30f);
+    if (lse != nullptr && tx == 0)
+      lse[(long(b) * H + h) * S + s] = m[i] + logf(l[i]);
     float* o = out + ((long(b) * S + s) * H + h) * D;
 #pragma unroll
     for (int a = 0; a < AD; ++a) o[tx + a * TX] = acc[i][a] / denom;
@@ -545,9 +562,9 @@ flash_attention_simt(const float* __restrict__ q, const float* __restrict__ k,
 
 template <int D, bool SOFTCAP>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
-                         void* out, int B, int S, int T_len, int H, int KVH,
-                         int kv_len, int causal, int window, float softcap,
-                         float scale, cudaStream_t stream) {
+                         void* out, float* lse, int B, int S, int T_len,
+                         int H, int KVH, int kv_len, int causal, int window,
+                         float softcap, float scale, cudaStream_t stream) {
   const size_t smem = wgmma_smem_bytes<D>();
   auto kernel = flash_attention_wgmma<D, SOFTCAP>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -558,23 +575,23 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v,
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(k),
       static_cast<const __nv_bfloat16*>(v),
-      static_cast<__nv_bfloat16*>(out), S, T_len, H, KVH, kv_len, causal,
-      window, softcap, scale);
+      static_cast<__nv_bfloat16*>(out), lse, S, T_len, H, KVH, kv_len,
+      causal, window, softcap, scale);
   return cudaGetLastError();
 }
 
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int S, int T_len, int H, int KVH, int kv_len,
-                   int causal, int window, float softcap, float scale,
-                   cudaStream_t stream) {
+                   float* lse, int B, int S, int T_len, int H, int KVH,
+                   int kv_len, int causal, int window, float softcap,
+                   float scale, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     return softcap > 0.f
-               ? launch_wgmma<D, true>(q, k, v, out, B, S, T_len, H, KVH,
+               ? launch_wgmma<D, true>(q, k, v, out, lse, B, S, T_len, H, KVH,
                                        kv_len, causal, window, softcap,
                                        scale, stream)
-               : launch_wgmma<D, false>(q, k, v, out, B, S, T_len, H, KVH,
-                                        kv_len, causal, window, softcap,
+               : launch_wgmma<D, false>(q, k, v, out, lse, B, S, T_len, H,
+                                        KVH, kv_len, causal, window, softcap,
                                         scale, stream);
   } else {
     const size_t smem = simt_smem_bytes<D>();
@@ -585,32 +602,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
     const dim3 grid((S + BQ - 1) / BQ, H, B);
     kernel<<<grid, SIMT_THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k),
-        static_cast<const T*>(v), static_cast<T*>(out), S, T_len, H, KVH,
-        kv_len, causal, window, softcap, scale);
+        static_cast<const T*>(v), static_cast<T*>(out), lse, S, T_len, H,
+        KVH, kv_len, causal, window, softcap, scale);
     return cudaGetLastError();
   }
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* out, int B,
-             int S, int T_len, int H, int KVH, int D, int kv_len, int causal,
-             int window, float softcap, float scale, void* stream) {
+int dispatch(const void* q, const void* k, const void* v, void* out,
+             float* lse, int B, int S, int T_len, int H, int KVH, int D,
+             int kv_len, int causal, int window, float softcap, float scale,
+             void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, out, B, S, T_len, H, KVH, kv_len, causal,
-                           window, softcap, scale, st);
+      return launch<T, 32>(q, k, v, out, lse, B, S, T_len, H, KVH, kv_len,
+                           causal, window, softcap, scale, st);
     case 64:
-      return launch<T, 64>(q, k, v, out, B, S, T_len, H, KVH, kv_len, causal,
-                           window, softcap, scale, st);
+      return launch<T, 64>(q, k, v, out, lse, B, S, T_len, H, KVH, kv_len,
+                           causal, window, softcap, scale, st);
     case 128:
-      return launch<T, 128>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
+      return launch<T, 128>(q, k, v, out, lse, B, S, T_len, H, KVH, kv_len,
                             causal, window, softcap, scale, st);
     case 192:
-      return launch<T, 192>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
+      return launch<T, 192>(q, k, v, out, lse, B, S, T_len, H, KVH, kv_len,
                             causal, window, softcap, scale, st);
     case 256:
-      return launch<T, 256>(q, k, v, out, B, S, T_len, H, KVH, kv_len,
+      return launch<T, 256>(q, k, v, out, lse, B, S, T_len, H, KVH, kv_len,
                             causal, window, softcap, scale, st);
     default:
       return int(cudaErrorInvalidValue);
@@ -619,24 +637,26 @@ int dispatch(const void* q, const void* k, const void* v, void* out, int B,
 
 }  // namespace
 
-// bf16 q/k/v: the tensor-core kernel, flash_attention_wgmma.
+// bf16 q/k/v: the tensor-core kernel, flash_attention_wgmma.  lse: fp32
+// [B, H, S], each row's log-sum-exp of its scaled (and capped) scores, for
+// the backward pass; NULL (the serving path) writes none.
 extern "C" int flash_attention_bf16(const void* q, const void* k,
-                                    const void* v, void* out, int B, int S,
-                                    int T_len, int H, int KVH, int D,
-                                    int kv_len, int causal, int window,
-                                    float softcap, float scale,
+                                    const void* v, void* out, float* lse,
+                                    int B, int S, int T_len, int H, int KVH,
+                                    int D, int kv_len, int causal,
+                                    int window, float softcap, float scale,
                                     void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, out, B, S, T_len, H, KVH, D,
+  return dispatch<__nv_bfloat16>(q, k, v, out, lse, B, S, T_len, H, KVH, D,
                                  kv_len, causal, window, softcap, scale,
                                  stream);
 }
 
-// fp32 q/k/v: the CUDA-core kernel, flash_attention_simt.
+// fp32 q/k/v: the CUDA-core kernel, flash_attention_simt (lse as above).
 extern "C" int flash_attention_f32(const void* q, const void* k,
-                                   const void* v, void* out, int B, int S,
-                                   int T_len, int H, int KVH, int D,
-                                   int kv_len, int causal, int window,
+                                   const void* v, void* out, float* lse,
+                                   int B, int S, int T_len, int H, int KVH,
+                                   int D, int kv_len, int causal, int window,
                                    float softcap, float scale, void* stream) {
-  return dispatch<float>(q, k, v, out, B, S, T_len, H, KVH, D, kv_len,
+  return dispatch<float>(q, k, v, out, lse, B, S, T_len, H, KVH, D, kv_len,
                          causal, window, softcap, scale, stream);
 }

@@ -13,6 +13,13 @@ before P V (they are the tensor cores' A operand), where the plain version
 keeps them in fp32; the output is rounded to bf16 anyway, and the two stay
 within the 2e-2 bf16 tolerance.  ``kernels.ops.flash_attention`` picks
 between the plain version and the kernels by the tensors' device.
+
+Training adds the rows' log-sum-exp to the forward (``return_lse``) and a
+backward: ``flash_attention_bwd_cuda`` launches ``csrc/
+flash_attention_bwd.cu`` (dQ, dK, dV from q, k, v, the output, lse and
+dO; no Pallas kernel has a backward), and ``flash_attention_bwd_plain``
+repeats its formulas tile by tile in plain torch.
+``kernels.ops.FlashAttentionFn`` joins forward and backward for autograd.
 """
 from __future__ import annotations
 
@@ -42,10 +49,23 @@ def _tile_needed(q_start: int, k_start: int, *, kv_len: int, causal: bool,
     return needed
 
 
+def _visible(qpos, kpos, *, kv_len: int, causal: bool, window: int):
+    """The band's mask over (query, key) positions, as the kernels take it."""
+    valid = kpos < kv_len
+    if causal:
+        valid = valid & (kpos <= qpos)
+    if window > 0:
+        valid = valid & (kpos > qpos - window)
+    return valid
+
+
 def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
                           window: int = 0, softcap: float = 0.0,
-                          kv_len: Optional[int] = None):
-    """q: [B, S, H, D]; k/v: [B, T, KVH, D] -> [B, S, H, D] in q's dtype."""
+                          kv_len: Optional[int] = None,
+                          return_lse: bool = False):
+    """q: [B, S, H, D]; k/v: [B, T, KVH, D] -> [B, S, H, D] in q's dtype,
+    and with ``return_lse`` also each row's log-sum-exp of its scaled (and
+    capped) scores, ``m + log l``, fp32 [B, H, S]."""
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     G = H // KVH
@@ -53,6 +73,7 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
     qf = q.float().reshape(B, S, KVH, G, D)
     kf, vf = k.float(), v.float()
     out = torch.empty_like(q)
+    lse = torch.empty((B, KVH, G, S), device=q.device)
     for q0 in range(0, S, BQ):
         qt = qf[:, q0:q0 + BQ]                          # [B, bq, KVH, G, D]
         bq = qt.shape[1]
@@ -69,11 +90,8 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
             if softcap > 0:
                 s = torch.tanh(s / softcap) * softcap
             kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None]
-            valid = kpos < kv_len
-            if causal:
-                valid = valid & (kpos <= qpos)
-            if window > 0:
-                valid = valid & (kpos > qpos - window)
+            valid = _visible(qpos, kpos, kv_len=kv_len, causal=causal,
+                             window=window)
             s = torch.where(valid, s, NEG_INF)
             m_new = torch.maximum(m, s.amax(-1))
             alpha = torch.exp(m - m_new)
@@ -85,6 +103,9 @@ def flash_attention_plain(q, k, v, *, causal: bool = True, scale: float,
         o = acc / torch.clamp_min(l, 1e-30)[..., None]  # [B, KVH, G, bq, D]
         out[:, q0:q0 + bq] = o.permute(0, 3, 1, 2, 4).reshape(
             B, bq, H, D).to(q.dtype)
+        lse[..., q0:q0 + bq] = m + torch.log(l)
+    if return_lse:
+        return out, lse.reshape(B, H, S)
     return out
 
 
@@ -122,21 +143,29 @@ def _check(q, k, v, kv_len):
 
 def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float,
                          window: int = 0, softcap: float = 0.0,
-                         kv_len: Optional[int] = None):
+                         kv_len: Optional[int] = None,
+                         return_lse: bool = False):
     """Launch the CUDA kernel on the current stream; raises on anything
-    the kernel does not take.  Counts its launches in ``.launches``, by
+    the kernel does not take, and under autograd (``build.refuse_grad``:
+    ``kernels.ops.FlashAttentionFn`` is the path that carries a gradient).
+    ``return_lse`` also returns the rows' log-sum-exp, fp32 [B, H, S], as
+    ``flash_attention_plain``.  Counts its launches in ``.launches``, by
     the window it was given in ``.window_launches``, and those not causal
     in ``.noncausal_launches``."""
+    build.refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, kv_len)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
+    lse = (torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     lib = build.load()
     fn = (lib.flash_attention_bf16 if q.dtype == torch.bfloat16
           else lib.flash_attention_f32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                 None if lse is None else lse.data_ptr(),
                  B, S, T, H, KVH, D, T if kv_len is None else kv_len,
                  int(causal), int(window), float(softcap), float(scale),
                  stream)
@@ -146,9 +175,132 @@ def flash_attention_cuda(q, k, v, *, causal: bool = True, scale: float,
         counts = flash_attention_cuda.window_launches
         counts[int(window)] = counts.get(int(window), 0) + 1
         flash_attention_cuda.noncausal_launches += not causal
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.window_launches = {}
 flash_attention_cuda.noncausal_launches = 0
+
+
+# ------------------------------------------------------------ the backward
+
+BWD_HEAD_DIMS = (64, 128)
+BWD_PASSES = ("delta", "dkdv", "dq")     # the backward's three launches
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
+                              scale: float, window: int = 0,
+                              softcap: float = 0.0,
+                              kv_len: Optional[int] = None):
+    """(dq, dk, dv) of ``flash_attention_plain``'s output against ``dout``,
+    from the forward's output ``o`` and row log-sum-exp ``lse`` [B, H, S]:
+    the formulas of ``csrc/flash_attention_bwd.cu`` in plain torch, on the
+    same BQ x BK tiles with the same band skipping, in fp32.  Per tile
+    P = exp(s - lse) (0 where masked), dP = dO V^T, dS = P (dP - Delta)
+    (times 1 - tanh^2 of the capped score under a softcap), with
+    Delta = rowsum(dO o); dV += P^T dO, dK += scale dS^T Q,
+    dQ += scale dS K.  Returned in the inputs' dtypes."""
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    G = H // KVH
+    kv_len = T if kv_len is None else min(kv_len, T)
+    qf = q.float().reshape(B, S, KVH, G, D)
+    df = dout.float().reshape(B, S, KVH, G, D)
+    kf, vf = k.float(), v.float()
+    delta = (dout.float() * o.float()).sum(-1)           # [B, S, H]
+    delta = delta.reshape(B, S, KVH, G).permute(0, 2, 3, 1)
+    lse = lse.reshape(B, KVH, G, S)
+    dq = torch.zeros((B, S, KVH, G, D), device=q.device)
+    dk = torch.zeros((B, T, KVH, D), device=q.device)
+    dv = torch.zeros((B, T, KVH, D), device=q.device)
+    for q0 in range(0, S, BQ):
+        qt, dt = qf[:, q0:q0 + BQ], df[:, q0:q0 + BQ]  # [B, bq, KVH, G, D]
+        bq = qt.shape[1]
+        qpos = torch.arange(q0, q0 + bq, device=q.device)[:, None]
+        for k0 in range(0, T, BK):
+            if not _tile_needed(q0, k0, kv_len=kv_len, causal=causal,
+                                window=window):
+                continue
+            kt, vt = kf[:, k0:k0 + BK], vf[:, k0:k0 + BK]
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qt, kt) * scale
+            if softcap > 0:
+                t = torch.tanh(s / softcap)
+                s = t * softcap
+            kpos = torch.arange(k0, k0 + kt.shape[1], device=q.device)[None]
+            valid = _visible(qpos, kpos, kv_len=kv_len, causal=causal,
+                             window=window)
+            p = torch.where(valid, torch.exp(s - lse[..., q0:q0 + bq, None]),
+                            0.0)
+            dp = torch.einsum("bqhgd,bkhd->bhgqk", dt, vt)
+            ds = p * (dp - delta[..., q0:q0 + bq, None])
+            if softcap > 0:
+                ds = ds * (1 - t * t)
+            dv[:, k0:k0 + BK] += torch.einsum("bhgqk,bqhgd->bkhd", p, dt)
+            dk[:, k0:k0 + BK] += scale * torch.einsum("bhgqk,bqhgd->bkhd",
+                                                      ds, qt)
+            dq[:, q0:q0 + bq] += scale * torch.einsum("bhgqk,bkhd->bqhgd",
+                                                      ds, kt)
+    return (dq.reshape(B, S, H, D).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def check_bwd(q, k, kv_len) -> None:
+    """What the backward kernel does not take, refused before the forward
+    launches: head dims other than BWD_HEAD_DIMS, and keys cut by a
+    kv_len."""
+    D, T = q.shape[-1], k.shape[1]
+    if D not in BWD_HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: head_dim {D} not in "
+                         f"{BWD_HEAD_DIMS}")
+    if kv_len is not None and kv_len != T:
+        raise ValueError(f"flash_attention_bwd: kv_len {kv_len} cuts the "
+                         f"{T} keys; the backward kernel takes every key")
+
+
+def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
+                             scale: float, window: int = 0,
+                             softcap: float = 0.0,
+                             kv_len: Optional[int] = None):
+    """Launch ``csrc/flash_attention_bwd.cu`` (three launches: Delta, dK/dV,
+    dQ) on the current stream; raises on anything it does not take.  Its
+    Delta workspace comes from the caching allocator for this call alone
+    (autograd runs a backward on its own thread, and a workspace shared
+    across calls would race).  Counts its calls in ``.launches`` and each
+    pass's launches in ``.pass_launches``."""
+    build.refuse_grad("flash_attention_bwd", q, k, v, o, dout)
+    check_bwd(q, k, kv_len)
+    _check(q, k, v, None)
+    B, S, H, D = q.shape
+    T, KVH = k.shape[1], k.shape[2]
+    for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
+                                  ("dout", dout, q.shape, q.dtype),
+                                  ("lse", lse, (B, H, S), torch.float32)):
+        if (t.device != q.device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()):
+            raise ValueError(
+                f"flash_attention_bwd: {name} must be a contiguous {dtype} "
+                f"tensor of shape {tuple(shape)} on {q.device}, got "
+                f"{t.dtype} {tuple(t.shape)} on {t.device}")
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = build.load()
+    fn = (lib.flash_attention_bwd_bf16 if q.dtype == torch.bfloat16
+          else lib.flash_attention_bwd_f32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                 dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
+                 B, S, T, H, KVH, D, int(causal), int(window),
+                 float(softcap), float(scale), stream)
+    build.check(err, "flash_attention_bwd")
+    with _count_lock:
+        flash_attention_bwd_cuda.launches += 1
+        for name in BWD_PASSES:
+            flash_attention_bwd_cuda.pass_launches[name] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd_cuda.launches = 0
+flash_attention_bwd_cuda.pass_launches = dict.fromkeys(BWD_PASSES, 0)

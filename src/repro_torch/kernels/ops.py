@@ -5,10 +5,18 @@ and tensors on a CUDA device to the hand-written kernel.  There is no
 other branch and no fallback: a CUDA tensor launches the kernel or raises.
 (This replaces the JAX package's ``_auto_interpret``, which picked the
 Pallas interpreter off the TPU.)
+
+Flash attention also carries a gradient: under autograd (grad enabled and
+q, k or v requiring grad) it goes through ``FlashAttentionFn``, whose
+forward and backward each take the kernel or the plain version by the
+same rule (``flash_attention_bwd`` on the card).  The other kernels'
+wrappers refuse to run under autograd (``build.refuse_grad``).
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
+
+import torch
 
 from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import paged_attention as _pa
@@ -17,14 +25,17 @@ from repro_torch.kernels import ssd_scan as _ssd
 # kernel name -> its CUDA wrapper (each counts its launches)
 CUDA_WRAPPERS = {
     "flash_attention": _fa.flash_attention_cuda,
+    "flash_attention_bwd": _fa.flash_attention_bwd_cuda,
     "paged_attention": _pa.paged_attention_cuda,
     "ssd_scan": _ssd.ssd_scan_cuda,
 }
 
 # kernel name -> the wrapper's counts by kind, kept beside ``.launches``:
-# flash by window, paged by slot-cache capacity, the SSD scan by variant
+# flash by window, its backward by pass (each call launches all three),
+# paged by slot-cache capacity, the SSD scan by variant
 KIND_COUNTS = {
     "flash_attention": "window_launches",
+    "flash_attention_bwd": "pass_launches",
     "paged_attention": "capacity_launches",
     "ssd_scan": "variant_launches",
 }
@@ -40,8 +51,54 @@ def _on_cuda(*tensors) -> bool:
                      f"one CUDA device, got {sorted(kinds)}")
 
 
-def flash_attention(q, k, v, **kw):
-    """Prefill attention; see ``kernels.flash_attention``."""
+class FlashAttentionFn(torch.autograd.Function):
+    """Flash attention with a gradient: the forward keeps its output and
+    its rows' log-sum-exp, the backward computes (dq, dk, dv) from them;
+    each takes the kernel (CUDA tensors: ``flash_attention_cuda`` with
+    ``return_lse``, then ``flash_attention_bwd_cuda``) or the plain
+    version (CPU tensors).  On the card the forward first refuses what the
+    backward kernel does not take (``check_bwd``), so no step runs a
+    forward it cannot differentiate.  Both kernels are deterministic, so
+    a recomputed forward (activation checkpointing) gives the same lse."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool, scale: float, window: int,
+                softcap: float, kv_len: Optional[int]):
+        kw = dict(causal=causal, scale=scale, window=window,
+                  softcap=softcap, kv_len=kv_len)
+        if _on_cuda(q, k, v):
+            _fa.check_bwd(q, k, kv_len)
+            out, lse = _fa.flash_attention_cuda(q, k, v, return_lse=True,
+                                                **kw)
+        else:
+            out, lse = _fa.flash_attention_plain(q, k, v, return_lse=True,
+                                                 **kw)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        args = (q, k, v, out, lse, dout.contiguous())
+        if _on_cuda(q, k, v):
+            grads = _fa.flash_attention_bwd_cuda(*args, **ctx.kw)
+        else:
+            grads = _fa.flash_attention_bwd_plain(*args, **ctx.kw)
+        return (*grads, None, None, None, None, None)
+
+
+def flash_attention(q, k, v, *, causal: bool = True, scale: float,
+                    window: int = 0, softcap: float = 0.0,
+                    kv_len: Optional[int] = None):
+    """Prefill attention; see ``kernels.flash_attention``.  Under autograd
+    it goes through ``FlashAttentionFn``."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return FlashAttentionFn.apply(q, k, v, causal, scale, window,
+                                      softcap, kv_len)
+    kw = dict(causal=causal, scale=scale, window=window, softcap=softcap,
+              kv_len=kv_len)
     if _on_cuda(q, k, v):
         return _fa.flash_attention_cuda(q, k, v, **kw)
     return _fa.flash_attention_plain(q, k, v, **kw)

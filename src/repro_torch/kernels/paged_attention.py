@@ -155,7 +155,9 @@ def paged_attention_cuda(q, k_pages, v_pages, page_tables, lengths, *,
     the kernel does not take.  Page-table entries must lie in [0, P).
     Counts its launches in ``.launches``, and by the capacity of a
     sequence's pages (page-table width x page size, the slot cache's T) in
-    ``.capacity_launches``."""
+    ``.capacity_launches``.  Raises under autograd
+    (``build.refuse_grad``): the kernel has no backward."""
+    build.refuse_grad("paged_attention", q, k_pages, v_pages)
     _check(q, k_pages, v_pages, page_tables, lengths)
     B, H, D = q.shape
     _, ps, KVH, _ = k_pages.shape

@@ -153,7 +153,9 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     """Launch the CUDA kernel on the current stream; raises on anything
     the kernel does not take.  Counts its launches in ``.launches``, and
     in ``.variant_launches`` by the kernel that ran: "wgmma" (bf16, the
-    tensor cores) or "cuda_core" (fp32)."""
+    tensor cores) or "cuda_core" (fp32).  Raises under autograd
+    (``build.refuse_grad``): the scan has no backward kernel yet."""
+    build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]

@@ -6,7 +6,9 @@ encoder-decoder.
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
-    forward(params, batch, dropless=) -> (hidden [B,S,d], aux) (teacher-forced)
+    forward(params, batch, remat=, dropless=)
+                                    -> (hidden [B,S,d], aux) (teacher-forced)
+    loss(params, batch, remat=)     -> (loss, {ce, aux, tokens}) (training)
     init_cache(B, max_len, enc_len=0, device=)
                                     -> cache (one stacked dict per pattern
                                        position: K/V for an attention
@@ -34,13 +36,19 @@ in the JAX package, only the encoder-decoder owns position tables: a
 decoder-only config with ``pos_emb=LEARNED`` runs with no positional
 signal.  A hybrid config without its ``ssm`` block, which cannot build
 its Mamba mixers, is refused as invalid.
+
+Training (``loss``) covers the dense and attention-variant decoders: their
+backward runs the flash attention backward kernel on the card.  A stack
+with Mamba-2 blocks, MoE FFNs, or an encoder-decoder is refused with a
+``ValueError`` naming the missing piece (``check_trainable``).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.device import require_device
@@ -56,9 +64,31 @@ from repro_torch.models import transformer as T
 # the port serves is one chunk)
 LOGITS_CHUNK_BYTES = 4 << 30
 
+CE_CHUNK = 512  # sequence-chunked cross-entropy (bounds the logits buffer)
+
 
 def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Refuse, with a ValueError that names the missing piece, a config
+    whose backward the port does not have yet (ROADMAP queue 1).  On the
+    card those would train through plain versions, or not at all."""
+    from repro_torch.models.transformer import block_pattern
+    if cfg.is_encdec:
+        raise ValueError(
+            f"{cfg.name}: training an encoder-decoder is not ported yet: "
+            f"its batches carry fp32 frame embeddings (training/data.py), "
+            f"and the port's encode takes frames in its weights' dtype")
+    if any(d.mixer == "mamba" for d in block_pattern(cfg)):
+        raise ValueError(
+            f"{cfg.name}: training Mamba-2 (SSD) blocks is not ported yet: "
+            f"the SSD scan has no backward kernel")
+    if cfg.moe is not None:
+        raise ValueError(
+            f"{cfg.name}: training MoE blocks is not ported yet: there is "
+            f"no gradient through the sorted expert dispatch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -162,21 +192,79 @@ class Model:
         return x, cross
 
     # ------------------------------------------------------------ forward
-    def forward(self, params, batch, *, dropless: bool = False):
+    def forward(self, params, batch, *, remat: Optional[bool] = None,
+                dropless: bool = False):
         """Teacher-forced pass to final hidden states.  Returns (x, aux):
         aux is the MoE blocks' summed load-balancing loss (zero without
-        MoE).  dropless=True routes without overflow (inference).  An
-        encoder-decoder takes ``{"src_embeds", "tgt_tokens"}``."""
+        MoE).  remat (default ``cfg.remat``) checkpoints each repeat of
+        the decoder stack when grad is enabled.  dropless=True routes
+        without overflow (inference).  An encoder-decoder takes
+        ``{"src_embeds", "tgt_tokens"}`` (and is not trained: no remat)."""
         if self.cfg.is_encdec:
             x, _ = self._encdec_pass(params, batch)
             return x, x.new_zeros((), dtype=torch.float32)
+        remat = self.cfg.remat if remat is None else remat
         x, positions = self._inputs(params, batch)
         x, _, aux = T.stack_forward(self.cfg, params["blocks"], x,
                                     positions=positions,
                                     attn_impl=self.attn_impl,
-                                    dropless=dropless)
+                                    dropless=dropless, remat=remat)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         return x, aux
+
+    # --------------------------------------------------------------- loss
+    def _labels(self, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(labels [B,S], mask [B,S] fp32) aligned with forward()'s output:
+        a VLM's ``labels`` where given (masked where negative), else the
+        next token, the last position masked."""
+        if self.cfg.is_encdec:
+            t = batch["tgt_tokens"]
+        elif self.cfg.family == Family.VLM and "labels" in batch:
+            lab = batch["labels"]
+            return lab, (lab >= 0).float()
+        else:
+            t = batch["tokens"]
+        labels = torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], dim=1)
+        mask = torch.cat([torch.ones_like(t[:, 1:], dtype=torch.float32),
+                          torch.zeros_like(t[:, :1], dtype=torch.float32)],
+                         dim=1)
+        return labels, mask
+
+    def loss(self, params, batch, *, remat: Optional[bool] = None):
+        """Mean next-token cross-entropy over the masked positions, plus
+        0.01 of the MoE aux loss.  Returns (loss, {ce, aux, tokens}).  The
+        cross-entropy runs over chunks of CE_CHUNK positions, each under
+        activation checkpointing, as the JAX twin's ``jax.checkpoint``ed
+        scan: a chunk's fp32 logits (and the head widened to fp32 for
+        them) are recomputed in the backward pass, not kept."""
+        check_trainable(self.cfg)
+        x, aux = self.forward(params, batch, remat=remat)
+        labels, mask = self._labels(batch)
+        B, S, _ = x.shape
+        cs = min(CE_CHUNK, S)
+
+        def ce_chunk(xc, yc, mc):
+            logits = self._logits(params, xc)           # fp32 [B, cs, V]
+            lse = torch.logsumexp(logits, dim=-1)
+            # a masked label may be negative: gather a real row (the mask
+            # zeroes it), where the JAX twin's take_along_axis wraps
+            ll = torch.gather(logits, -1,
+                              yc.clamp(min=0)[..., None].long())[..., 0]
+            return torch.sum((lse - ll) * mc), torch.sum(mc)
+
+        grad = torch.is_grad_enabled()
+        total = x.new_zeros((), dtype=torch.float32)
+        count = x.new_zeros((), dtype=torch.float32)
+        for c0 in range(0, S, cs):
+            args = (x[:, c0:c0 + cs], labels[:, c0:c0 + cs],
+                    mask[:, c0:c0 + cs])
+            ce, n = (checkpoint(ce_chunk, *args, use_reentrant=False)
+                     if grad else ce_chunk(*args))
+            total = total + ce
+            count = count + n
+        ce = total / torch.clamp(count, min=1.0)
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux, "tokens": count}
 
     # -------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int, enc_len: int = 0, *,

@@ -10,7 +10,10 @@ pattern position with a leading repeats axis (``[R, ...]``; an attention
 position's cache ``[R, B, T, KVH, D]``, a Mamba position's conv and SSM
 state ``[R, B, ...]``, so one stack may hold both kinds).
 A Python loop over the repeats takes the place of ``lax.scan``; each step
-indexes views of the stacked tensors, so cache writes land in place.
+indexes views of the stacked caches, so cache writes land in place, and
+takes the stacked parameters apart once per pass (``_unbind``).  With
+``remat`` (training) each repeat runs under activation checkpointing, the
+twin of the JAX stack's ``jax.checkpoint`` of its scan step.
 """
 from __future__ import annotations
 
@@ -18,6 +21,7 @@ import dataclasses
 from typing import Dict, List, Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
 from repro_torch.models import layers as L
@@ -71,6 +75,20 @@ def _layer(tree: Dict, r: int) -> Dict:
     """Layer r of a stacked tree: views, so writes reach the stack."""
     return {k: _layer(v, r) if isinstance(v, dict) else v[r]
             for k, v in tree.items()}
+
+
+def _unbind(tree: Dict, R: int) -> List[Dict]:
+    """The R layers of a stacked tree, each a dict of views, from one
+    ``torch.unbind`` a tensor.  Under autograd its backward stacks the R
+    layers' gradients into one tensor, where indexing each layer
+    (``_layer``) would allocate a zero tensor of the whole stack for every
+    layer's gradient."""
+    layers: List[Dict] = [{} for _ in range(R)]
+    for k, v in tree.items():
+        parts = _unbind(v, R) if isinstance(v, dict) else torch.unbind(v)
+        for r in range(R):
+            layers[r][k] = parts[r]
+    return layers
 
 
 # ------------------------------------------------------------------- params
@@ -160,25 +178,39 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
 
 def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
                   positions, caches: Optional[List[Dict]] = None,
-                  attn_impl: str = "kernel", dropless: bool = False):
+                  attn_impl: str = "kernel", dropless: bool = False,
+                  remat: bool = False):
     """Full-sequence pass.  x: [B, S, d]; positions [B, S], or [3, B, S]
     under M-RoPE.  Returns (x, caches, aux) — the caches written in place,
     or None; aux the MoE blocks' summed load-balancing loss (fp32 scalar).
-    dropless=True routes MoE blocks without overflow (inference)."""
+    dropless=True routes MoE blocks without overflow (inference).
+    remat=True, with grad enabled, runs each repeat of the block pattern
+    under ``torch.utils.checkpoint`` (non-reentrant): its activations are
+    recomputed in the backward pass, and only the residual stream between
+    repeats is kept."""
     pat = block_pattern(cfg)
+    R = num_repeats(cfg)
     cos = sin = None
     if not cfg.attention_free:
         cos, sin = L.positional_cos_sin(cfg, positions)
-    aux = x.new_zeros((), dtype=torch.float32)
-    for r in range(num_repeats(cfg)):
+    layers = [_unbind(p, R) for p in stacked_params]
+
+    def step(x, aux, r):
         for j, desc in enumerate(pat):
             c = _layer(caches[j], r) if caches is not None else None
-            x, a = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
-                                mode="full", positions=positions, cache=c,
-                                cos=cos, sin=sin, attn_impl=attn_impl,
+            x, a = _apply_block(cfg, desc, layers[j][r], x, mode="full",
+                                positions=positions, cache=c, cos=cos,
+                                sin=sin, attn_impl=attn_impl,
                                 dropless=dropless)
             if a is not None:
                 aux = aux + a
+        return x, aux
+
+    remat = remat and torch.is_grad_enabled()
+    aux = x.new_zeros((), dtype=torch.float32)
+    for r in range(R):
+        x, aux = (checkpoint(step, x, aux, r, use_reentrant=False) if remat
+                  else step(x, aux, r))
     return x, caches, aux
 
 

@@ -916,8 +916,8 @@ def test_reduced_jamba_kernel_path_matches_plain_path(cuda):
         got.append(lg)
     n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
     assert ops.launch_counts() == {
-        "flash_attention": n_attn, "paged_attention": 16 * n_attn,
-        "ssd_scan": cfg.num_layers - n_attn}
+        "flash_attention": n_attn, "flash_attention_bwd": 0,
+        "paged_attention": 16 * n_attn, "ssd_scan": cfg.num_layers - n_attn}
     assert SSD.ssd_scan_cuda.variant_launches["wgmma"] == \
         cfg.num_layers - n_attn
     got = torch.stack(got, 1).float()
@@ -959,6 +959,7 @@ def test_reduced_seamless_kernel_path_matches_plain_path(cuda):
         got.append(lg)
     L, E = cfg.num_layers, cfg.encoder_layers
     assert ops.launch_counts() == {"flash_attention": E + 2 * L,
+                                   "flash_attention_bwd": 0,
                                    "paged_attention": 8 * 2 * L,
                                    "ssd_scan": 0}
     assert FA.flash_attention_cuda.noncausal_launches == E + L
@@ -1155,3 +1156,170 @@ def test_reduced_mamba2_kernel_path_matches_plain_path(cuda):
         worst = max(worst, float((lg.softmax(-1) - ref[:, t].softmax(-1))
                                  .abs().max()))
     assert worst < 5e-3, worst
+
+
+# ------------------------------------------------ the flash backward kernel
+# Each gradient is held to 2e-2 (bf16) or 2e-5 (fp32) of its norm against
+# flash_attention_bwd_plain on the same q, k, v, dO and the kernel's own
+# forward output and lse: the same fp32 sums in another order (bf16 also
+# rounds each gradient once).
+
+BWD_CASES = {
+    "olmo causal": (2, 300, 16, 16, 128, {}),
+    "seamless not causal": (2, 200, 16, 16, 64, dict(causal=False)),
+    "G=2 window": (1, 200, 8, 4, 128, dict(window=48)),
+    "G=4 softcap": (1, 160, 8, 2, 64, dict(softcap=5.0, q_boost=3.0)),
+    "G=4 window softcap": (1, 150, 8, 2, 128,
+                           dict(window=40, softcap=5.0, q_boost=3.0)),
+    "edge S=2": (1, 2, 4, 2, 128, {}),   # S=1: dq = dk = 0, noise only
+    "edge S=63": (1, 63, 4, 2, 128, {}),
+    "edge S=64": (1, 64, 4, 2, 64, {}),
+    "edge S=65": (1, 65, 4, 2, 128, {}),
+    "edge S=129": (1, 129, 4, 2, 64, dict(causal=False)),
+}
+
+
+def bwd_inputs(dev, B, S, H, KVH, D, dtype, seed, q_boost=1.0):
+    rng = np.random.default_rng(seed)
+    q = on(dev, rng.standard_normal((B, S, H, D)) * q_boost, dtype)
+    k = on(dev, rng.standard_normal((B, S, KVH, D)), dtype)
+    v = on(dev, rng.standard_normal((B, S, KVH, D)), dtype)
+    dout = on(dev, rng.standard_normal((B, S, H, D)), dtype)
+    return q, k, v, dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
+    B, S, H, KVH, D, kw = BWD_CASES[case]
+    kw = dict(kw, scale=D ** -0.5)
+    boost = kw.pop("q_boost", 1.0)
+    q, k, v, dout = bwd_inputs(cuda, B, S, H, KVH, D, DTYPES[dtype], S + D,
+                               boost)
+    out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    before = dict(FA.flash_attention_bwd_cuda.pass_launches)
+    got = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    torch.cuda.synchronize()
+    assert all(FA.flash_attention_bwd_cuda.pass_launches[p] == before[p] + 1
+               for p in FA.BWD_PASSES)
+    want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        rel_close(g, w, dtype)
+    if kw.get("softcap"):
+        # the cap binds: without it the plain gradient moves ten tolerances
+        out0, lse0 = FA.flash_attention_plain(q, k, v, return_lse=True,
+                                              **dict(kw, softcap=0.0))
+        uncapped = FA.flash_attention_bwd_plain(q, k, v, out0, lse0, dout,
+                                                **dict(kw, softcap=0.0))
+        assert rel_err(uncapped[0], want[0]) > 10 * REL_TOL[dtype]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128, 192, 256])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [{}, dict(window=40, softcap=20.0),
+                                dict(causal=False)],
+                         ids=["causal", "window-softcap", "noncausal"])
+def test_flash_attention_lse(cuda, D, dtype, kw):
+    """The forward's lse is torch.logsumexp of the plain scores (scaled,
+    capped, masked), at every head dim; asking for it leaves the output
+    bit for bit as the serving path's."""
+    B, S, H, KVH = 2, 150, 4, 2
+    q, k, v, _ = bwd_inputs(cuda, B, S, H, KVH, D, DTYPES[dtype], D)
+    kw = dict(kw, scale=D ** -0.5)
+    out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, FA.flash_attention_cuda(q, k, v, **kw))
+    kf = k.float().repeat_interleave(H // KVH, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * kw["scale"]
+    if kw.get("softcap"):
+        s = torch.tanh(s / kw["softcap"]) * kw["softcap"]
+    pos = torch.arange(S, device=cuda)
+    ok = torch.ones(S, S, dtype=torch.bool, device=cuda)
+    if kw.get("causal", True):
+        ok &= pos[None] <= pos[:, None]
+    if kw.get("window"):
+        ok &= pos[None] > pos[:, None] - kw["window"]
+    want = torch.logsumexp(torch.where(ok, s, -1e30), dim=-1)
+    torch.testing.assert_close(lse, want, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_is_deterministic(cuda):
+    q, k, v, dout = bwd_inputs(cuda, 2, 300, 8, 4, 128, torch.bfloat16, 3)
+    kw = dict(scale=128 ** -0.5)
+    out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    out2, lse2 = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    a = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    b = FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_flash_attention_fn_runs_both_kernels(cuda):
+    """Under autograd ops.flash_attention goes through FlashAttentionFn:
+    one forward and one backward launch, the gradients the plain ones."""
+    q, k, v, dout = bwd_inputs(cuda, 1, 200, 8, 2, 128, torch.bfloat16, 4)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, scale=0.1, window=64)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 1
+    assert counts["flash_attention_bwd"] == 1
+    with torch.no_grad():
+        o, lse = FA.flash_attention_plain(q, k, v, scale=0.1, window=64,
+                                          return_lse=True)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, dout,
+                                            scale=0.1, window=64)
+    for g, w in zip(got, want):
+        rel_close(g, w, "bfloat16")
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_refuses_what_it_does_not_take(cuda):
+    q, k, v, dout = bwd_inputs(cuda, 1, 64, 4, 2, 32, torch.bfloat16, 5)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    with pytest.raises(ValueError, match="head_dim 32"):
+        ops.flash_attention(q, k, v, scale=0.1)
+    with pytest.raises(RuntimeError, match="carries no gradient"):
+        FA.flash_attention_cuda(q, k, v, scale=0.1)
+    q, k, v, dout = bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16, 5)
+    with pytest.raises(ValueError, match="kv_len"):
+        ops.flash_attention(q.requires_grad_(), k, v, scale=0.1, kv_len=40)
+
+
+@pytest.mark.cuda
+def test_reduced_training_step_kernel_path_matches_plain_path(cuda):
+    """olmo-1b at smoke width (head_dim 64, which the backward kernel
+    takes) on the card: one loss and gradient on the kernel path (flash
+    forward and backward kernels, remat recomputing each block) against
+    the plain path (blocked_attention under autograd) from the same
+    parameters and batch.  Loss within 1e-2; each gradient's cosine with
+    the plain one at least 0.99 (bf16 rounds at other places)."""
+    import dataclasses
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import make_batch
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config("olmo-1b").reduced(), head_dim=64)
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, 2, 200, step=0).items()}
+    ops.reset_launch_counts()
+    loss_k, _, grads_k = loss_and_grads(kernel, params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    assert counts["flash_attention"] == 2 * cfg.num_layers     # remat
+    assert counts["flash_attention_bwd"] == cfg.num_layers
+    loss_p, _, grads_p = loss_and_grads(plain, params, batch)
+    assert abs(float(loss_k) - float(loss_p)) < 1e-2
+    for (path, a), b in zip(TR.flatten_with_paths(grads_k),
+                            TR.leaves(grads_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos > 0.99, (path, cos)

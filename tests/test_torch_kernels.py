@@ -336,6 +336,7 @@ def test_ops_dispatch_cpu_goes_to_plain_versions():
     out = ops.paged_attention(*targs, scale=0.3)
     assert torch.equal(out, PA.paged_attention_plain(*targs, scale=0.3))
     assert ops.launch_counts() == {"flash_attention": 0,
+                                   "flash_attention_bwd": 0,
                                    "paged_attention": 0, "ssd_scan": 0}
 
 

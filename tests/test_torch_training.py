@@ -1,0 +1,363 @@
+"""The port's training path against the JAX package's.
+
+Each piece runs beside its twin on the same numpy-drawn inputs and on
+parameters (and AdamW state) carried across by ``repro_torch.bridge``:
+``make_batch``, ``lr_at``, ``global_norm``, one ``adamw_update``, the
+int8 fake-quant, ``Model.loss`` (olmo-1b, gemma2-2b, qwen2-vl-2b with
+``labels``) and olmo-1b's whole gradient tree.  Then the mirrors of
+``tests/test_training.py`` (the loss falls, int8 compression still
+learns, the quant error bound, the moment dtype), checkpoint save,
+restore and resume, and the loud refusals of the families whose backward
+is not ported yet.
+
+Tolerances, with their reasons:
+
+* batches and the int8 fake-quant: bit for bit (the same numpy code; the
+  same fp32 division and round-half-to-even);
+* ``lr_at``, ``global_norm`` and fp32 AdamW state: 1e-6 relative (the same
+  fp32 formulas, summed in another order); a bf16 parameter or moment
+  within one bf16 step of JAX's (the fp32 update may round either way);
+* the loss: 5e-3 (the models run in bf16, which the two frameworks round
+  at other places; both take fp32 logits and log-sum-exp);
+* olmo-1b's gradient tree at smoke width: every leaf's cosine with JAX's
+  at least 0.999 and its error at most 5e-2 of its norm (bf16 gradients,
+  rounded at other places; measured about 0.9998 and 0.02).
+"""
+import os
+import shutil
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_config as jax_get_config
+from repro.distributed.sharding import unbox
+from repro.models import build_model as jax_build_model
+from repro.training import make_batch as jax_make_batch
+from repro.training import optimizer as JO
+from repro.training import quantize_dequantize_int8 as jax_qdq
+from repro_torch import bridge
+from repro_torch import tree as TR
+from repro_torch.checkpoint import Checkpointer
+from repro_torch.configs import get_config
+from repro_torch.launch.train import run_training
+from repro_torch.models import build_model
+from repro_torch.models.model import check_trainable
+from repro_torch.training import (AdamWConfig, TrainConfig, adamw_init,
+                                  adamw_update, global_norm,
+                                  init_train_state, lr_at, make_batch,
+                                  make_train_step, quantize_dequantize_int8)
+from repro_torch.training.train_step import loss_and_grads
+
+torch.set_num_threads(2)
+
+
+def to_numpy(t):
+    """A torch tensor as numpy; bf16 as ml_dtypes' bfloat16 (the bits)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(jnp.bfloat16)
+    return t.numpy()
+
+
+def torch_batch(np_batch):
+    return {k: torch.from_numpy(v.copy()) for k, v in np_batch.items()}
+
+
+def bridged(arch):
+    """(JAX model, JAX params, port model, port params) at smoke width."""
+    jm = jax_build_model(jax_get_config(arch).reduced())
+    jparams = unbox(jm.init(jax.random.PRNGKey(0)))
+    tparams = bridge.params_from_numpy(jax.tree.map(np.asarray, jparams))
+    return jm, jparams, build_model(get_config(arch).reduced()), tparams
+
+
+# ------------------------------------------------------------------ data
+@pytest.mark.parametrize("arch", ["olmo-1b", "qwen2-vl-2b",
+                                  "seamless-m4t-medium"])
+def test_make_batch_identical(arch):
+    jcfg, tcfg = jax_get_config(arch).reduced(), get_config(arch).reduced()
+    for step in (0, 3):
+        want = jax_make_batch(jcfg, 4, 32, step=step, seed=1)
+        got = make_batch(tcfg, 4, 32, step=step, seed=1)
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert got[k].dtype == want[k].dtype
+            np.testing.assert_array_equal(got[k], want[k])
+
+
+# ------------------------------------------------------------- optimizer
+def test_lr_at_matches_jax():
+    cfg = AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=40)
+    jcfg = JO.AdamWConfig(lr=1e-3, warmup_steps=5, total_steps=40)
+    for step in range(0, 50):
+        np.testing.assert_allclose(float(lr_at(cfg, step)),
+                                   float(JO.lr_at(jcfg, step)), rtol=1e-6)
+
+
+def opt_case(dtype, moment_dtype, seed=0):
+    """Params (a 2-d, a 1-d and a stacked leaf), grads and moments as after
+    a few steps, in numpy: params in ``dtype`` (1-d always fp32)."""
+    rng = np.random.default_rng(seed)
+
+    def arr(shape, dt, scale=1.0):
+        return jnp.asarray(rng.standard_normal(shape) * scale, dt)
+    pdt = jnp.dtype(dtype)
+    mdt = jnp.dtype(moment_dtype)
+    params = {"w": arr((8, 16), pdt), "scale": arr((16,), jnp.float32),
+              "blocks": [{"x": arr((2, 4, 4), pdt)}]}
+    grads = jax.tree.map(lambda p: arr(p.shape, p.dtype, 0.5), params)
+    state = {"m": jax.tree.map(lambda p: arr(p.shape, mdt, 0.1), params),
+             "v": jax.tree.map(lambda p: jnp.abs(arr(p.shape, mdt, 0.01)),
+                               params),
+             "step": jnp.asarray(3, jnp.int32)}
+    return params, grads, state
+
+
+def within_one_bf16_step(got, want):
+    got, want = np.asarray(got, np.float32), np.asarray(want, np.float32)
+    step = np.maximum(np.abs(want), 1e-30) * 2.0 ** -7
+    assert np.all(np.abs(got - want) <= step), np.max(np.abs(got - want))
+
+
+@pytest.mark.parametrize("dtype,moment_dtype", [
+    ("float32", "float32"), ("bfloat16", "float32"),
+    ("bfloat16", "bfloat16")])
+@pytest.mark.parametrize("clip", [1.0, 100.0])
+def test_adamw_update_matches_jax(dtype, moment_dtype, clip):
+    """One step from the same params, grads and moments, clipping binding
+    (1.0) and not (100.0)."""
+    jp, jg, js = opt_case(dtype, moment_dtype)
+    kw = dict(lr=1e-2, warmup_steps=2, total_steps=20, grad_clip=clip,
+              moment_dtype=moment_dtype)
+    np_tree = lambda t: jax.tree.map(np.asarray, t)   # noqa: E731
+    tp = bridge.params_from_numpy(np_tree(jp))
+    tg = bridge.params_from_numpy(np_tree(jg))
+    ts = bridge.opt_state_from_numpy(np_tree(js))
+    jp2, js2, jmet = JO.adamw_update(JO.AdamWConfig(**kw), jg, js, jp)
+    tp2, ts2, tmet = adamw_update(AdamWConfig(**kw), tg, ts, tp)
+    assert tp2 is tp                               # updated in place
+    np.testing.assert_allclose(float(tmet["grad_norm"]),
+                               float(jmet["grad_norm"]), rtol=1e-6)
+    np.testing.assert_allclose(float(tmet["lr"]), float(jmet["lr"]),
+                               rtol=1e-6)
+    assert int(ts2["step"]) == int(js2["step"]) == 4
+    for got_tree, want_tree in ((tp2, jp2), (ts2["m"], js2["m"]),
+                                (ts2["v"], js2["v"])):
+        for got, want in zip(TR.leaves(got_tree), jax.tree.leaves(want_tree)):
+            assert str(got.dtype).removeprefix("torch.") == str(want.dtype)
+            if want.dtype == jnp.bfloat16:
+                within_one_bf16_step(to_numpy(got), want)
+            else:
+                np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                           rtol=1e-6, atol=1e-7)
+
+
+def test_global_norm_matches_jax():
+    jp, _, _ = opt_case("bfloat16", "float32", seed=4)
+    tp = bridge.params_from_numpy(jax.tree.map(np.asarray, jp))
+    np.testing.assert_allclose(float(global_norm(tp)),
+                               float(JO.global_norm(jp)), rtol=1e-6)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_quantize_dequantize_int8_bit_for_bit(dtype):
+    rng = np.random.default_rng(5)
+    for shape, scale in (((64, 32), 0.01), ((7,), 3.0), ((), 1.5)):
+        g = jnp.asarray(rng.standard_normal(shape) * scale, dtype)
+        got = quantize_dequantize_int8(
+            bridge.tensor_from_numpy(np.asarray(g)))
+        want = np.asarray(jax_qdq(g))
+        assert to_numpy(got).tobytes() == want.tobytes()
+
+
+def test_int8_quant_error_bound():
+    g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (256, 64)).astype(np.float32)) * 0.01
+    q = quantize_dequantize_int8(g)
+    amax = float(g.abs().max())
+    assert float((q - g).abs().max()) <= amax / 127.0 + 1e-9
+
+
+def test_moment_dtype_option():
+    model = build_model(get_config("olmo-1b").reduced())
+    params = model.init(0, device="cpu")
+    st = adamw_init(AdamWConfig(moment_dtype="bfloat16"), params)
+    assert all(t.dtype == torch.bfloat16 for t in TR.leaves(st["m"]))
+    assert st["step"].dtype == torch.int32 and int(st["step"]) == 0
+
+
+# ------------------------------------------------------------------ loss
+@pytest.mark.parametrize("arch", ["olmo-1b", "gemma2-2b", "qwen2-vl-2b"])
+def test_loss_matches_jax(arch):
+    jm, jparams, model, tparams = bridged(arch)
+    np_batch = jax_make_batch(jm.cfg, 4, 48, step=1)
+    if "labels" in np_batch:       # a VLM's labels: some masked out
+        np_batch["labels"][:, :5] = -1
+    jloss, jmet = jm.loss(jparams, {k: jnp.asarray(v)
+                                    for k, v in np_batch.items()})
+    loss, met = model.loss(tparams, torch_batch(np_batch))
+    assert abs(float(loss) - float(jloss)) < 5e-3, (float(loss), float(jloss))
+    assert abs(float(met["ce"]) - float(jmet["ce"])) < 5e-3
+    assert float(met["aux"]) == float(jmet["aux"]) == 0.0
+    assert float(met["tokens"]) == float(jmet["tokens"])
+
+
+def test_olmo_gradient_tree_matches_jax_grad():
+    jm, jparams, model, tparams = bridged("olmo-1b")
+    np_batch = jax_make_batch(jm.cfg, 4, 64, step=0)
+    jbatch = {k: jnp.asarray(v) for k, v in np_batch.items()}
+    jgrads = jax.grad(lambda p: jm.loss(p, jbatch)[0])(jparams)
+    _, _, grads = loss_and_grads(model, tparams, torch_batch(np_batch))
+    got, want = TR.flatten_with_paths(grads), jax.tree.leaves(jgrads)
+    assert len(got) == len(want)
+    for (path, g), w in zip(got, want):
+        g, w = g.float().numpy().ravel(), np.asarray(w, np.float32).ravel()
+        assert g.dtype == w.dtype
+        cos = float(g @ w / (np.linalg.norm(g) * np.linalg.norm(w)))
+        rel = float(np.linalg.norm(g - w) / np.linalg.norm(w))
+        assert cos > 0.999 and rel < 5e-2, (path, cos, rel)
+
+
+def test_remat_on_and_off_give_the_same_gradients():
+    model = build_model(get_config("olmo-1b").reduced())
+    params = model.init(0, device="cpu")
+    leaves = TR.leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    batch = torch_batch(make_batch(model.cfg, 2, 80, step=0))
+    grads = {}
+    for remat in (True, False):
+        loss, _ = model.loss(params, batch, remat=remat)
+        grads[remat] = torch.autograd.grad(loss, leaves)
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b)
+
+
+# ------------------------------------------------- tests/test_training.py
+def train(grad_compression: str, steps: int):
+    model = build_model(get_config("olmo-1b").reduced())
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=3,
+                                       total_steps=40),
+                       grad_compression=grad_compression)
+    params, opt = init_train_state(model, tcfg, 0, device="cpu")
+    step = make_train_step(model, tcfg)
+    losses = []
+    for i in range(steps):
+        batch = torch_batch(make_batch(model.cfg, 8, 64, step=i))
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))
+    return losses
+
+
+def test_loss_decreases_olmo():
+    losses = train("none", 15)
+    assert losses[-1] < losses[0] - 0.5, losses
+
+
+def test_grad_compression_still_learns():
+    losses = train("int8", 12)
+    assert losses[-1] < losses[0] - 0.3, losses
+
+
+# ------------------------------------------------------------ checkpoint
+def ck_tree():
+    return {"a": torch.arange(12, dtype=torch.float32).reshape(3, 4),
+            "nested": {"b": torch.ones(5, dtype=torch.bfloat16) * 1.5,
+                       "c": torch.tensor(7, dtype=torch.int32)},
+            "list": [torch.zeros(2, 2), torch.full((3,), -2.0)]}
+
+
+def assert_tree_equal(x, y):
+    for (pa, a), (pb, b) in zip(TR.flatten_with_paths(x),
+                                TR.flatten_with_paths(y)):
+        assert pa == pb and a.dtype == b.dtype and torch.equal(a, b), pa
+
+
+def test_checkpoint_roundtrip_with_bf16(tmp_path):
+    ck = Checkpointer(str(tmp_path))
+    t = ck_tree()
+    ck.save(5, t)
+    assert_tree_equal(t, ck.restore(5, t))
+
+
+def test_checkpoint_async_save_and_wait(tmp_path):
+    ck = Checkpointer(str(tmp_path))
+    t = ck_tree()
+    ck.save(1, t, blocking=False)
+    ck.wait()
+    assert ck.latest_step() == 1
+    assert_tree_equal(t, ck.restore(1, t))
+
+
+def test_checkpoint_tmp_never_listed(tmp_path):
+    ck = Checkpointer(str(tmp_path))
+    os.makedirs(tmp_path / "step_00000009.tmp")
+    (tmp_path / "step_00000009.tmp" / "junk").write_text("crash leftover")
+    os.makedirs(tmp_path / "step_00000007")      # no .complete marker
+    assert ck.all_steps() == []
+    ck.save(3, ck_tree())
+    assert ck.all_steps() == [3]
+
+
+def test_checkpoint_keeps_last_k(tmp_path):
+    ck = Checkpointer(str(tmp_path), keep=2)
+    for s in (1, 2, 3, 4):
+        ck.save(s, ck_tree())
+    assert ck.all_steps() == [3, 4]
+
+
+def test_checkpoint_structure_and_shape_mismatch_rejected(tmp_path):
+    ck = Checkpointer(str(tmp_path))
+    ck.save(1, ck_tree())
+    with pytest.raises(ValueError, match="structure"):
+        ck.restore(1, {"different": torch.zeros(3, 4)})
+    bad = ck_tree()
+    bad["a"] = torch.zeros(4, 3)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        ck.restore(1, bad)
+
+
+def test_run_training_resumes_as_if_uninterrupted(tmp_path):
+    """Six steps saved every two; the last checkpoint deleted (a crash
+    before it was written); a rerun resumes from step 4 and ends with the
+    same losses and parameters as the uninterrupted run."""
+    kw = dict(reduced=True, steps=6, batch=2, seq=32, save_every=2,
+              device="cpu", verbose=False, ckpt_dir=str(tmp_path))
+    params, _, losses = run_training("olmo-1b", **kw)
+    ck = Checkpointer(str(tmp_path))
+    assert ck.all_steps() == [2, 4, 6]
+    shutil.rmtree(tmp_path / "step_00000006")
+    params2, opt2, losses2 = run_training("olmo-1b", **kw)
+    assert losses2 == losses[4:]
+    assert int(opt2["step"]) == 6
+    for a, b in zip(TR.leaves(params), TR.leaves(params2)):
+        assert torch.equal(a, b)
+
+
+def test_run_training_defaults_to_the_card():
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run_training("olmo-1b", steps=1, verbose=False)
+
+
+# ------------------------------------------------------------- refusals
+@pytest.mark.parametrize("arch,missing", [
+    ("mamba2-780m", "SSD scan has no backward"),
+    ("jamba-1.5-large-398b", "SSD scan has no backward"),
+    ("mixtral-8x7b", "sorted expert dispatch"),
+    ("seamless-m4t-medium", "encoder-decoder"),
+])
+def test_untrainable_families_refuse_loudly(arch, missing):
+    cfg = get_config(arch).reduced()
+    with pytest.raises(ValueError, match=missing):
+        check_trainable(cfg)
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    batch = torch_batch(make_batch(cfg, 2, 16, step=0))
+    with pytest.raises(ValueError, match=missing):
+        model.loss(params, batch)
+    with pytest.raises(ValueError, match=missing):
+        run_training(arch, steps=1, device="cpu", verbose=False)
+
