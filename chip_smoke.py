@@ -12,10 +12,15 @@ fallback):
             (flash also at olmo-1b's training batch, 4 x 2048, and
             flash's backward: at olmo-1b's training shape, D = 64 not
             causal, G = 2 and 4, a window, a softcap that binds and the
-            tile edges, each gradient within 2e-2 (bf16) or 2e-5 (fp32)
-            of its norm, after the forward's lse is held against
-            torch.logsumexp of the plain scores; its library call is
-            SDPA's backward),
+            tile edges, every head dim the forward takes in both dtypes,
+            nemotron-4-340b's heads (D = 192) and gemma2-2b's (D = 256,
+            its softcap binding, with and without a window), a kv_len
+            below T and the tile edges at D = 256, each gradient within
+            2e-2 (bf16) or 2e-5 (fp32) of its norm, after the forward's
+            lse is held against torch.logsumexp of the plain scores;
+            timed at olmo-1b's, gemma2-2b's and nemotron-4-340b's heads
+            and in fp32; its library call is SDPA's backward, or under a
+            softcap flex_attention's),
             at the main path's shapes, the sweep shapes of
             ``tests/test_kernels.py`` and the edges of the kernels' tiles
             (the SSD scan also shows which variant ran: bf16 must take the
@@ -97,9 +102,11 @@ frame embeddings from --seed.
             every decoder layer (counted by capacity, 80 and 1500); the
             logits against the teacher-forced forward over the generated
             sequence.
-Then training, olmo-1b at full published width and depth (1,176,764,416
-parameters), random weights from --seed, batches of 4 x 2048 tokens from
-the port's make_batch, AdamW, remat as the config sets it:
+Then training, olmo-1b (1,176,764,416 parameters) and gemma2-2b
+(2,614,341,888: head_dim 256, G = 2, an attention softcap of 50) each at
+full published width and depth, random weights from --seed, batches of
+4 x 2048 tokens from the port's make_batch, AdamW, remat as the config
+sets it:
 6. train    one loss and gradient on the kernel path against the plain
             path (blocked_attention under autograd) from the same
             parameters: the loss within 1e-2, every gradient's cosine at
@@ -147,6 +154,7 @@ os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
 os.environ.setdefault("TRITON_CACHE_DIR", os.path.join(ROOT, "build", "triton"))
 
 PEAK_BF16_FLOPS = 989e12      # H100 SXM dense bf16 tensor cores (data sheet)
+PEAK_FP32_FLOPS = 67e12       # H100 SXM fp32 on CUDA cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
 SPIN_CYCLES_PER_S = 2e9       # above the H100's 1.98 GHz boost clock, so a
                               # spin of n cycles lasts at least n / 2e9 s
@@ -227,13 +235,14 @@ BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the forward's lse against torch.logsumexp of the plain scores (the same
 # fp32 function of the same inputs), relative and absolute
 LSE_TOL = 2e-5
-# training: olmo-1b at full published width and depth, the launcher's
-# defaults but the size (batch 4 x 2048 tokens, AdamW, remat as in the
-# config), from --seed; the schedule and the gate of
+# training: olmo-1b and gemma2-2b at full published width and depth, the
+# launcher's defaults but the size (batch 4 x 2048 tokens, AdamW, remat as
+# in the config), from --seed; the schedule and the gate of
 # tests/test_training.py:17-31 (lr 1e-3, warmup 3, total 40; 15 steps, the
-# loss down by more than 0.5)
-TRAIN_ARCH = "olmo-1b"
-TRAIN_PARAMS = 1_176_764_416
+# loss down by more than 0.5).  Each arch's parameter count is the JAX
+# init's.
+TRAIN_ARCH = "olmo-1b"        # its shapes are the backward's main row
+TRAIN_PARAMS = {"olmo-1b": 1_176_764_416, "gemma2-2b": 2_614_341_888}
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS = 15
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=40)
@@ -267,7 +276,7 @@ def kernel_label(ptxas_line: str) -> str:
     """``ssd_chunk_scan<64,128>`` or ``paged_attention_kernel<bf16,256,2>``
     from ptxas's "Compiling entry function '<mangled name>'" line (integer
     and bool template arguments, and the element type as bf16 or f32)."""
-    m = re.search(r"\d+((?:flash|paged|ssd)_\w*?)(I|E)", ptxas_line)
+    m = re.search(r"\d+((?:flash|paged|ssd|fa_bwd)_\w*?)(I|E)", ptxas_line)
     if m is None:
         return ptxas_line.strip()
     if m.group(2) == "E":
@@ -353,10 +362,11 @@ def times_text(t) -> str:
         f" ({t['bound_by']})"
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
     """Least time for the work on the card (bf16 inputs: the tensor cores'
-    bf16 peak), and whether operations or bytes set it."""
-    t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    bf16 peak; fp32 ones pass fp32's), and whether operations or bytes set
+    it."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_PER_S
     return (1e3 * max(t_ops, t_bytes),
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -1080,7 +1090,12 @@ def flash_bwd_cases():
     training shape of olmo-1b first (timed), seamless-m4t-medium's encoder
     (D = 64, not causal), G = 2 and 4, a window, a softcap that binds (q
     scaled by CAP_BOOST, as the forward's cases), and the 64-row tile
-    edges (S = 1 has dq = dk = 0, rounding noise only: S = 2 stands in)."""
+    edges (S = 1 has dq = dk = 0, rounding noise only: S = 2 stands in);
+    then every other head dim the forward takes (32, 192, 256) in both
+    dtypes, nemotron-4-340b's heads (96/8 at D = 192) and gemma2-2b's (8/4
+    at D = 256, its softcap of 50 binding, with and without a window of
+    1024) at 2048 tokens, a kv_len below T, and the 64-row edges at
+    D = 256."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 16, 16, 128, bf16,
               {}),
@@ -1099,10 +1114,30 @@ def flash_bwd_cases():
                    dict(causal=False))]
         cases += [(f"edge S={S}", 1, S, 4, 2, 128, dt, {})
                   for S in (2, 63, 64, 65, 129)]
+    cases += [("nemotron-4-340b heads, causal", 1, TRAIN_S, 96, 8, 192, bf16,
+               {})]
+    for window in (0, 1024):
+        cases.append((f"gemma2-2b heads, softcap 50, window {window}, "
+                      f"q*boost", 1, TRAIN_S, 8, 4, 256, bf16,
+                      dict(softcap=50.0, window=window,
+                           q_boost=CAP_BOOST[bf16])))
+    for dt in (f32, bf16):
+        for D in (32, 192, 256):
+            cases += [(f"G=2 D={D}", 1, 200, 8, 4, D, dt, {}),
+                      (f"G=4 D={D} window 40 softcap 50, q*boost", 1, 150, 8,
+                       2, D, dt, dict(window=40, softcap=50.0,
+                                      q_boost=CAP_BOOST[dt])),
+                      (f"D={D} not causal, kv_len 150 of T=200", 1, 200, 4,
+                       2, D, dt, dict(causal=False, kv_len=150))]
+        cases += [("D=256 causal, kv_len 300 of T=400", 1, 400, 8, 4, 256,
+                   dt, dict(kv_len=300))]
+        cases += [(f"edge S={S} D=256", 1, S, 4, 2, 256, dt, {})
+                  for S in (2, 63, 64, 65, 129)]
     return cases
 
 
-def lse_want(q, k, *, causal=True, scale, window=0, softcap=0.0):
+def lse_want(q, k, *, causal=True, scale, window=0, softcap=0.0,
+             kv_len=None):
     """torch.logsumexp of the plain scores: scaled, capped, masked, fp32
     [B, H, S]."""
     S, G = q.shape[1], q.shape[2] // k.shape[2]
@@ -1116,6 +1151,8 @@ def lse_want(q, k, *, causal=True, scale, window=0, softcap=0.0):
         ok &= pos[None] <= pos[:, None]
     if window:
         ok &= pos[None] > pos[:, None] - window
+    if kv_len is not None:
+        ok &= pos[None] < kv_len
     return torch.logsumexp(torch.where(ok, s, -1e30), dim=-1)
 
 
@@ -1160,6 +1197,10 @@ def check_flash_bwd(gen):
                     f"version's (bound {BWD_REL_TOL[dt]})")
             errs.append(max_err(g, w))
             rels.append(rel)
+        if kw.get("kv_len") is not None:    # keys past kv_len: no gradient
+            require(all(float(g[:, kw["kv_len"]:].abs().max()) == 0.0
+                        for g in got[1:]),
+                    f"{name}: dk or dv is not zero past kv_len")
         text = (f"lse max_abs_err={lse_err:.3g}; dq/dk/dv rel_err="
                 f"{'/'.join(f'{r:.3g}' for r in rels)} max_abs_err="
                 f"{max(errs):.3g}")
@@ -1177,59 +1218,137 @@ def check_flash_bwd(gen):
             main_err = max(errs)
         print(f"  {name}: {text}")
         del q, k, v, dout, out, lse, got, want
-    t = time_flash_bwd(FA, gen)
+    # olmo-1b's training shape (the kernels line's own), then gemma2-2b's
+    # and nemotron-4-340b's heads at 2048 tokens, then olmo-1b's in fp32
+    t = time_flash_bwd(FA, gen, TRAIN_B, 16, 16, 128)
+    extra = []
+    for model, B, H, KVH, D, cap, dt, main_path in (
+            ("gemma2-2b training", TRAIN_B, 8, 4, 256, 50.0, torch.bfloat16,
+             True),
+            ("nemotron-4-340b", 1, 96, 8, 192, 0.0, torch.bfloat16, False),
+            (f"{TRAIN_ARCH}, fp32", TRAIN_B, 16, 16, 128, 0.0, torch.float32,
+             False)):
+        r = time_flash_bwd(FA, gen, B, H, KVH, D, softcap=cap, dtype=dt)
+        r["model"], r["main_path"] = model, main_path
+        if not main_path:
+            r["launches"] = 0           # no main path trains it
+        print(f"  flash_attention_bwd at {r['shape']}: {times_text(r)}")
+        print_beside("flash_attention_bwd", r)
+        extra.append(r)
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/models/layers.py:170",
                 replaces_note=("no Pallas kernel has a backward: the JAX "
                                "model trains through blocked_attention, "
                                "which XLA differentiates"),
-                max_abs_err=main_err, **t)
+                max_abs_err=main_err, **t, models=extra)
 
 
-def time_flash_bwd(FA, gen):
-    """Kernel, plain and library times of the backward at olmo-1b's
-    training shape (bf16, causal), beside the card's bound: five products
-    of 2 D operations a (q, k) pair and head; q, k, v, o, dO and lse read
-    once, dq, dk, dv written once.  The library call is SDPA's backward
-    (``torch.autograd.grad`` through one SDPA forward, kept with
-    retain_graph), held against the plain version first."""
-    B, S, H, D = TRAIN_B, TRAIN_S, 16, 128
-    kw = dict(causal=True, scale=D ** -0.5)
-    q, k, v, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
-                     .bfloat16() for _ in range(4))
+def flex_backward_call(q, k, v, dout, *, scale: float, softcap: float):
+    """``torch.autograd.grad`` through one compiled ``flex_attention``
+    forward (causal block mask, the softcap as its score_mod, GQA by
+    enable_gqa), kept with retain_graph: (dq, dk, dv) as [B, H, S, D]
+    views.  Compiled here, outside any timing, after dynamo's caches are
+    cleared."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return torch.tanh(score / softcap) * softcap
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return q_idx >= kv_idx
+
+    torch._dynamo.reset()
+    flex = torch.compile(flex_attention, dynamic=False)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    block_mask = create_block_mask(mask_mod, B=None, H=None,
+                                   Q_LEN=q.shape[1], KV_LEN=k.shape[1],
+                                   device=q.device)
+    out = flex(qt, kt, vt, score_mod=score_mod, block_mask=block_mask,
+               scale=scale, enable_gqa=q.shape[2] != k.shape[2])
+    dout_t = dout.transpose(1, 2)
+
+    def call():
+        return torch.autograd.grad(out, (qt, kt, vt), dout_t,
+                                   retain_graph=True)
+    return call
+
+
+def library_backward(what: str, call, want):
+    """``{what: call}`` if the call's gradients are each within the
+    kernel's own bound of the plain version's (then it computes the same
+    function, and its time may stand beside the kernel's), else {}."""
+    t0 = time.monotonic()
+    got = call()
+    torch.cuda.synchronize()
+    dt = want[0].dtype
+    rels = [rel_err(g.transpose(1, 2), w) for g, w in zip(got, want)]
+    agrees = all(r < BWD_REL_TOL[dt] for r in rels)
+    print(f"    {what} (first call {time.monotonic() - t0:.1f} s) against "
+          f"the plain version: dq/dk/dv rel_err="
+          f"{'/'.join(f'{r:.3g}' for r in rels)}: "
+          + ("the same function" if agrees else
+             "DISAGREES, so no library time is reported for it"))
+    return {what: call} if agrees else {}
+
+
+def time_flash_bwd(FA, gen, B, H, KVH, D, softcap=0.0,
+                   dtype=torch.bfloat16):
+    """Kernel, plain and library times of the backward at q/dO
+    [B, 2048, H, D], k/v [B, 2048, KVH, D], causal, beside the card's
+    bound: five products of 2 D operations a (q, k) pair and head; q, k,
+    v, o, dO and lse read once, dq, dk, dv written once.  The library call
+    (``torch.autograd.grad`` through one forward, kept with retain_graph,
+    held against the plain version first) is SDPA's backward, or under a
+    softcap flex_attention's with the cap as its score_mod; SDPA's
+    backward without the cap (a different function) stands beside it."""
+    S = TRAIN_S
+    kw = dict(causal=True, scale=D ** -0.5, softcap=softcap)
+    q, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+               .to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, KVH, D, generator=gen, device="cuda")
+            .to(dtype) for _ in range(2))
     out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, **kw)
     want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
     o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
-                                            scale=kw["scale"])
+                                            scale=kw["scale"],
+                                            enable_gqa=KVH != H)
     dout_t = dout.transpose(1, 2)
 
     def sdpa_backward():
         return torch.autograd.grad(o_sdpa, (qt, kt, vt), dout_t,
                                    retain_graph=True)
 
-    # the same function if each gradient is within the kernel's own bound
-    rels = [rel_err(g.transpose(1, 2), w)
-            for g, w in zip(sdpa_backward(), want)]
-    agrees = all(r < BWD_REL_TOL[torch.bfloat16] for r in rels)
-    print(f"    sdpa backward against the plain version: dq/dk/dv rel_err="
-          f"{'/'.join(f'{r:.3g}' for r in rels)}: "
-          + ("the same function" if agrees else
-             "DISAGREES, so no library time is reported for it"))
-    library = {"sdpa_backward": sdpa_backward} if agrees else {}
+    if softcap:
+        library = library_backward(
+            "flex_attention_backward",
+            flex_backward_call(q, k, v, dout, scale=kw["scale"],
+                               softcap=softcap), want)
+    else:
+        library = library_backward("sdpa_backward", sdpa_backward, want)
     del want
     t = kernel_times(
         lambda: FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, **kw),
         lambda: FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw),
         library, iters=10)
+    if softcap:
+        t["sdpa_without_softcap_ms"] = time_ms(sdpa_backward, 10)
+        t["sdpa_without_softcap_device_ms"] = time_held(sdpa_backward, 10)[0]
     pairs = S * (S + 1) // 2
     flops = 10.0 * H * D * B * pairs
-    nbytes = 8 * q.numel() * q.element_size() + lse.numel() * 4
-    bound_ms, bound_by = bound(flops, nbytes)
+    # q, o, dO, dq and k, v, dk, dv, once each, and lse
+    nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + lse.numel() * 4
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                               if dtype == torch.bfloat16
+                               else PEAK_FP32_FLOPS)
     return dict(t, bound_ms=bound_ms, bound_by=bound_by,
-                shape=f"q/k/v/dO [{B},{S},{H},{D}] bf16 causal (training)")
+                shape=(f"q/dO [{B},{S},{H},{D}], k/v [{B},{S},{KVH},{D}] "
+                       f"{str(dtype)[6:]} causal"
+                       + (f", softcap {softcap:g}" if softcap else "")))
 
 
 # -------------------------------------------------------------------- model
@@ -2082,8 +2201,8 @@ def check_train_step(cfg, params, seed: int) -> None:
           f"{gk!r} against {gp!r} (rel diff {dn:.3g})")
 
 
-def run_train(seed: int):
-    """olmo-1b at full width: the kernel path against the plain path on
+def run_train(arch: str, seed: int):
+    """``arch`` at full width: the kernel path against the plain path on
     one step, then TRAIN_STEPS steps of the launcher's train step (the
     main path: counters reset just before, read just after), each timed on
     the host clock; then one more step traced.  Returns the run's launch
@@ -2095,7 +2214,7 @@ def run_train(seed: int):
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_train_step)
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(TRAIN_ARCH)
+    cfg = get_config(arch)
     model = build_model(cfg)
     tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
     t0 = time.monotonic()
@@ -2103,11 +2222,13 @@ def run_train(seed: int):
     n_params = sum(t.numel() for t in TR.leaves(params))
     print(f"[train] {cfg.name} full width, {n_params} parameters, "
           f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads} heads of {cfg.head_dim}, remat={cfg.remat}, "
+          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+          f"window {cfg.sliding_window}, attention softcap "
+          f"{cfg.attn_logit_softcap:g}, remat={cfg.remat}, "
           f"batch {TRAIN_B} x {TRAIN_S} tokens, AdamW {TRAIN_OPT}, "
           f"initialised in {time.monotonic() - t0:.1f} s")
-    require(n_params == TRAIN_PARAMS,
-            f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS}")
+    require(n_params == TRAIN_PARAMS[arch],
+            f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS[arch]}")
     check_train_step(cfg, params, seed)
     gc.collect()
     torch.cuda.empty_cache()
@@ -2137,7 +2258,7 @@ def run_train(seed: int):
     # warm-up)
     median = float(np.median(host_ms[1:]))
     tokens = TRAIN_B * TRAIN_S
-    pairs = TRAIN_S * (TRAIN_S + 1) // 2
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2     # no window binds at 2048
     attn = 12.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * \
         TRAIN_B * pairs
     model_flops = 6.0 * n_params * tokens + attn
@@ -2164,6 +2285,46 @@ def run_train(seed: int):
     gc.collect()
     torch.cuda.empty_cache()
     return counts, kinds
+
+
+def count_launches(kernels, launches, by_model, kinds_by_model,
+                   trains) -> None:
+    """Write into each entry of the kernels line its launches on the main
+    paths (in total, by model, and each row's own), and require every row
+    on a main path to have launched."""
+    for k in kernels:
+        name = k["name"]
+        k["launches"] = launches[name]
+        k["launches_by_model"] = {m: n[name] for m, n in by_model.items()}
+        for row in k.get("models", []):
+            if not row.get("main_path", True):
+                continue
+            # the wrapper's own count of the launches of the row's kind
+            # (flash: its window; paged: its cache's capacity) in the
+            # row's model's runs on the main path; the backward's calls in
+            # the row's training
+            if "launches" not in row:
+                row["launches"] = (
+                    by_model[row["model"]][name]
+                    if name == "flash_attention_bwd" else
+                    kinds_by_model[row["model"]][name].get(
+                        row[kind_of(name)], 0))
+            require(row["launches"] > 0,
+                    f"{name}: the main path never launched it on "
+                    f"{row['model']}'s {kind_of(name)} "
+                    f"{row.get(kind_of(name))}")
+        k["passed"] = True
+        if name == "flash_attention_bwd":    # each pass, in training
+            k["pass_launches"] = {p: sum(kinds_by_model[t][name][p]
+                                         for t in trains)
+                                  for p in kinds_by_model[trains[0]][name]}
+        if name == "ssd_scan":           # the variants the main path ran
+            k["variant_launches"] = {v: sum(
+                kinds[name].get(v, 0) for kinds in kinds_by_model.values())
+                for v in ("wgmma", "cuda_core")}
+            k["variant"] = "+".join(
+                v for v, n in k["variant_launches"].items() if n)
+        del k["shape"]
 
 
 def main() -> int:
@@ -2334,38 +2495,16 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
-    # 6. training: olmo-1b at full width, the forward and backward kernels
-    train = f"{TRAIN_ARCH} training"
-    by_model[train], kinds_by_model[train] = run_train(args.seed)
-    for name, n in by_model[train].items():
-        launches[name] += n
+    # 6. training: olmo-1b, then gemma2-2b (the backward at D = 256 under
+    # its softcap), at full width, the forward and backward kernels
+    trains = [f"{arch} training" for arch in TRAIN_PARAMS]
+    for arch, train in zip(TRAIN_PARAMS, trains):
+        by_model[train], kinds_by_model[train] = run_train(arch, args.seed)
+        for name, n in by_model[train].items():
+            launches[name] += n
 
     # 7. report
-    for k in kernels:
-        name = k["name"]
-        k["launches"] = launches[name]
-        k["launches_by_model"] = {m: n[name] for m, n in by_model.items()}
-        for row in k.get("models", []):
-            if not row.get("main_path", True):
-                continue
-            # the wrapper's own count of the launches of the row's kind
-            # (flash: its window; paged: its cache's capacity) in the
-            # row's model's runs on the main path
-            row.setdefault("launches", kinds_by_model[row["model"]][name]
-                           .get(row[kind_of(name)], 0))
-            require(row["launches"] > 0,
-                    f"{name}: the main path never launched it on "
-                    f"{row['model']}'s {kind_of(name)} {row[kind_of(name)]}")
-        k["passed"] = True
-        if name == "flash_attention_bwd":    # each pass, in training
-            k["pass_launches"] = kinds_by_model[train][name]
-        if name == "ssd_scan":           # the variants the main path ran
-            k["variant_launches"] = {v: sum(
-                kinds[name].get(v, 0) for kinds in kinds_by_model.values())
-                for v in ("wgmma", "cuda_core")}
-            k["variant"] = "+".join(
-                v for v, n in k["variant_launches"].items() if n)
-        del k["shape"]
+    count_launches(kernels, launches, by_model, kinds_by_model, trains)
     print(f"[report] the run took {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -31,8 +31,11 @@ from repro_torch import tree as TR
 
 
 def _to_storable(t: torch.Tensor) -> Tuple[np.ndarray, str]:
-    """The host copy of a leaf as numpy, and its logical dtype's name."""
-    t = t.detach().cpu()
+    """The host copy of a leaf as numpy, and its logical dtype's name.  A
+    copy also of a CPU leaf (``.cpu()`` would return the same storage): an
+    async save writes it after ``save`` returns, while the caller updates
+    the tensors in place."""
+    t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.dtype).removeprefix("torch.")

@@ -7,8 +7,9 @@ port's copy of ``examples/quickstart.py``.
 
 On the card (the default) the model runs at its full published width,
 and every attention layer's backward runs the flash attention backward
-kernel, which takes head_dim 64 and 128 (olmo-1b, starcoder2-3b,
-qwen2-vl-2b); ``--device cpu`` runs the smoke-test width.  It trains
+kernel, which takes every head dim the forward does (gemma2-2b's 256
+and nemotron-4-340b's 192 too); ``--device cpu`` runs the smoke-test
+width.  It trains
 first and serves the same parameters after: serving runs under inference
 mode, whose tensors autograd cannot use.  Only the families the port
 trains are offered (``models.model.check_trainable``).

@@ -36,9 +36,9 @@ SIGNATURES = {
     "flash_attention": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                         _I, _F, _F, _P],
     # q, k, v, o, lse, dout, dq, dk, dv, delta (workspace), B, S, T, H, KVH,
-    # D, causal, window, softcap, scale, stream
+    # D, kv_len, causal, window, softcap, scale, stream
     "flash_attention_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _F, _F, _P],
+                            _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     # q, k_pages, v_pages, page_tables, lengths, out, scratch, tickets, B,
     # H, KVH, D, ps, maxp, n_split, span, scale, softcap, stream
     "paged_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

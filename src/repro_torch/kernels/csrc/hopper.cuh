@@ -28,6 +28,14 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
                "l"(src), "r"(src_bytes));
 }
+// 4 bytes, through L1 (cp.async takes 4 or 8 bytes only with .ca);
+// pred false writes 4 zero bytes.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
+                                          bool pred) {
+  const int src_bytes = pred ? 4 : 0;
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(src_bytes));
+}
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -302,6 +310,63 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
         "n"(TRANS_B), "r"(scale_d));
 }
 
+// d (64 x 96 fp32) = a (registers) * b (shared memory): the backward's
+// dK and dV halves at head_dim 192, each warpgroup its 96 columns.
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs(float (&d)[12][4],
+                                         const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %54, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, {%48, %49, %50, %51}, %52, p, 1, 1, %53;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b),
+        "n"(TRANS_B), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) = a (64 x 16 bf16) * b (16 x 64 bf16), plus d if
+// scale_d, both operands K-major in shared memory (SwTile::k_major): the
+// backward's score products, S = Q K^T and dP = dO V^T and their
+// transposes, with no A fragment in registers at all.
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t desc_a,
+                                         uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
 // ------------------------------------------------------ swizzled tiles
 
 // A [ROWS][COLS] bf16 tile for wgmma's shared-memory operands: column
@@ -313,13 +378,19 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32][4],
 // and n_major step over as they do over 128 columns' two: a block starts
 // at a multiple of BLOCK, itself a multiple of 1024 bytes, so the swizzle
 // of a chunk depends on its row alone in every block.  ROWS is a multiple
-// of 8 and the tile's base 1024-byte aligned.
-template <int ROWS, int COLS>
+// of 8 and the tile's base 1024-byte aligned.  SW_ may be given smaller
+// than the default, so that an N-major operand may start at a block that
+// is not the first (the backward's dK and dV halves at head_dim 192: 96
+// columns are three 64-byte blocks, not one and a half 128-byte ones).
+template <int ROWS, int COLS,
+          int SW_ = (COLS >= 128 ? 128 : COLS == 16 ? 32 : 64)>
 struct SwTile {
   static_assert(COLS == 16 || COLS == 32 || COLS == 64 || COLS == 128 ||
                     COLS == 192 || COLS == 256,
                 "SwTile: 16, 32, 64, 128, 192 or 256 columns");
-  static constexpr int SW = COLS >= 128 ? 128 : COLS == 16 ? 32 : 64;
+  static_assert((SW_ == 32 || SW_ == 64 || SW_ == 128) && COLS * 2 % SW_ == 0,
+                "SwTile: a row is whole 32-, 64- or 128-byte blocks");
+  static constexpr int SW = SW_;
   static constexpr int BLOCK = ROWS * SW;             // bytes a block
   static constexpr int BYTES = ROWS * COLS * 2;
   static constexpr uint32_t MODE = SW == 128 ? 1 : SW == 64 ? 2 : 3;
@@ -347,8 +418,9 @@ struct SwTile {
 
 // Copy rows [0, ROWS) of a [rows][COLS] bf16 matrix (row r at src + r *
 // stride elements) into a swizzled tile with cp.async, zero-filling rows at
-// or past `valid`.
-template <int ROWS, int COLS, int THREADS>
+// or past `valid` (SW: the tile's block width, as SwTile's).
+template <int ROWS, int COLS, int THREADS,
+          int SW = SwTile<ROWS, COLS>::SW>
 __device__ __forceinline__ void load_sw_tile(unsigned char* dst,
                                              const __nv_bfloat16* src,
                                              long stride, int valid,
@@ -358,7 +430,7 @@ __device__ __forceinline__ void load_sw_tile(unsigned char* dst,
   for (int e = tid; e < ROWS * CH; e += THREADS) {
     const int r = e / CH, c = e % CH;
     const bool ok = r < valid;
-    cp_async16(smem_addr(dst + SwTile<ROWS, COLS>::offset(r, c)),
+    cp_async16(smem_addr(dst + SwTile<ROWS, COLS, SW>::offset(r, c)),
                ok ? src + r * stride + c * 8 : src, ok);
   }
 }

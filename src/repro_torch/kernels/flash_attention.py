@@ -17,8 +17,9 @@ between the plain version and the kernels by the tensors' device.
 Training adds the rows' log-sum-exp to the forward (``return_lse``) and a
 backward: ``flash_attention_bwd_cuda`` launches ``csrc/
 flash_attention_bwd.cu`` (dQ, dK, dV from q, k, v, the output, lse and
-dO; no Pallas kernel has a backward), and ``flash_attention_bwd_plain``
-repeats its formulas tile by tile in plain torch.
+dO, at every head dim and kv_len the forward takes; no Pallas kernel has
+a backward), and ``flash_attention_bwd_plain`` repeats its formulas tile
+by tile in plain torch.
 ``kernels.ops.FlashAttentionFn`` joins forward and backward for autograd.
 """
 from __future__ import annotations
@@ -185,7 +186,6 @@ flash_attention_cuda.noncausal_launches = 0
 
 # ------------------------------------------------------------ the backward
 
-BWD_HEAD_DIMS = (64, 128)
 BWD_PASSES = ("delta", "dkdv", "dq")     # the backward's three launches
 
 
@@ -245,17 +245,13 @@ def flash_attention_bwd_plain(q, k, v, o, lse, dout, *, causal: bool = True,
             dv.to(v.dtype))
 
 
-def check_bwd(q, k, kv_len) -> None:
+def check_bwd(q) -> None:
     """What the backward kernel does not take, refused before the forward
-    launches: head dims other than BWD_HEAD_DIMS, and keys cut by a
-    kv_len."""
-    D, T = q.shape[-1], k.shape[1]
-    if D not in BWD_HEAD_DIMS:
+    launches: a head dim outside HEAD_DIMS (the forward's own)."""
+    D = q.shape[-1]
+    if D not in HEAD_DIMS:
         raise ValueError(f"flash_attention_bwd: head_dim {D} not in "
-                         f"{BWD_HEAD_DIMS}")
-    if kv_len is not None and kv_len != T:
-        raise ValueError(f"flash_attention_bwd: kv_len {kv_len} cuts the "
-                         f"{T} keys; the backward kernel takes every key")
+                         f"{HEAD_DIMS}")
 
 
 def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
@@ -263,14 +259,16 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
                              softcap: float = 0.0,
                              kv_len: Optional[int] = None):
     """Launch ``csrc/flash_attention_bwd.cu`` (three launches: Delta, dK/dV,
-    dQ) on the current stream; raises on anything it does not take.  Its
+    dQ; bf16 on the tensor cores, fp32 on CUDA cores) on the current
+    stream; raises on anything it does not take.  Keys at or past
+    ``kv_len`` get zero rows of dk and dv.  Its
     Delta workspace comes from the caching allocator for this call alone
     (autograd runs a backward on its own thread, and a workspace shared
     across calls would race).  Counts its calls in ``.launches`` and each
     pass's launches in ``.pass_launches``."""
     build.refuse_grad("flash_attention_bwd", q, k, v, o, dout)
-    check_bwd(q, k, kv_len)
-    _check(q, k, v, None)
+    check_bwd(q)
+    _check(q, k, v, kv_len)
     B, S, H, D = q.shape
     T, KVH = k.shape[1], k.shape[2]
     for name, t, shape, dtype in (("o", o, q.shape, q.dtype),
@@ -292,8 +290,9 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                  lse.data_ptr(), dout.data_ptr(), dq.data_ptr(),
                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(),
-                 B, S, T, H, KVH, D, int(causal), int(window),
-                 float(softcap), float(scale), stream)
+                 B, S, T, H, KVH, D, T if kv_len is None else kv_len,
+                 int(causal), int(window), float(softcap), float(scale),
+                 stream)
     build.check(err, "flash_attention_bwd")
     with _count_lock:
         flash_attention_bwd_cuda.launches += 1

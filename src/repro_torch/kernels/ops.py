@@ -67,7 +67,7 @@ class FlashAttentionFn(torch.autograd.Function):
         kw = dict(causal=causal, scale=scale, window=window,
                   softcap=softcap, kv_len=kv_len)
         if _on_cuda(q, k, v):
-            _fa.check_bwd(q, k, kv_len)
+            _fa.check_bwd(q)
             out, lse = _fa.flash_attention_cuda(q, k, v, return_lse=True,
                                                 **kw)
         else:

@@ -1176,6 +1176,26 @@ BWD_CASES = {
     "edge S=64": (1, 64, 4, 2, 64, {}),
     "edge S=65": (1, 65, 4, 2, 128, {}),
     "edge S=129": (1, 129, 4, 2, 64, dict(causal=False)),
+    # every head dim the forward takes, and kv_len
+    "D=32 G=2": (2, 150, 8, 4, 32, {}),
+    "D=32 window softcap": (1, 140, 8, 2, 32,
+                            dict(window=40, softcap=5.0, q_boost=3.0)),
+    "D=192 G=12": (1, 200, 24, 2, 192, {}),
+    "D=192 window softcap": (1, 180, 8, 4, 192,
+                             dict(window=48, softcap=5.0, q_boost=3.0)),
+    "D=256 G=2 softcap": (1, 200, 8, 4, 256, dict(softcap=5.0, q_boost=3.0)),
+    "D=256 window": (1, 300, 8, 4, 256, dict(window=100)),
+    "D=256 not causal": (2, 130, 4, 2, 256, dict(causal=False)),
+    "kv_len 70 of 100 not causal": (1, 100, 8, 4, 64,
+                                    dict(causal=False, kv_len=70)),
+    "kv_len 150 of 200 D=256": (1, 200, 8, 4, 256, dict(kv_len=150)),
+    "kv_len 100 of 130 D=192 not causal": (1, 130, 8, 2, 192,
+                                           dict(causal=False, kv_len=100)),
+    "edge S=63 D=256": (1, 63, 4, 2, 256, {}),
+    "edge S=65 D=256": (1, 65, 4, 2, 256, {}),
+    "edge S=129 D=256 not causal": (1, 129, 4, 2, 256, dict(causal=False)),
+    "edge S=65 D=192": (1, 65, 4, 2, 192, {}),
+    "edge S=63 D=32": (1, 63, 4, 2, 32, {}),
 }
 
 
@@ -1207,6 +1227,9 @@ def test_flash_attention_bwd_matches_plain(cuda, case, dtype):
     for name, g, w in zip(("dq", "dk", "dv"), got, want):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         rel_close(g, w, dtype)
+    if kw.get("kv_len") is not None:      # keys past kv_len: no gradient
+        for g in got[1:]:
+            assert float(g[:, kw["kv_len"]:].abs().max()) == 0.0
     if kw.get("softcap"):
         # the cap binds: without it the plain gradient moves ten tolerances
         out0, lse0 = FA.flash_attention_plain(q, k, v, return_lse=True,
@@ -1280,21 +1303,30 @@ def test_flash_attention_fn_runs_both_kernels(cuda):
 
 @pytest.mark.cuda
 def test_flash_attention_bwd_refuses_what_it_does_not_take(cuda):
-    q, k, v, dout = bwd_inputs(cuda, 1, 64, 4, 2, 32, torch.bfloat16, 5)
+    """A head dim outside the forward's is refused before the forward
+    launches, a kv_len outside [0, T] by the backward's wrapper; a kv_len
+    that cuts the keys trains (their rows of dk and dv are zero)."""
+    q, k, v, dout = bwd_inputs(cuda, 1, 64, 4, 2, 96, torch.bfloat16, 5)
     q, k, v = (t.requires_grad_() for t in (q, k, v))
-    with pytest.raises(ValueError, match="head_dim 32"):
+    with pytest.raises(ValueError, match="flash_attention_bwd: head_dim 96"):
         ops.flash_attention(q, k, v, scale=0.1)
     with pytest.raises(RuntimeError, match="carries no gradient"):
         FA.flash_attention_cuda(q, k, v, scale=0.1)
     q, k, v, dout = bwd_inputs(cuda, 1, 64, 4, 2, 64, torch.bfloat16, 5)
-    with pytest.raises(ValueError, match="kv_len"):
-        ops.flash_attention(q.requires_grad_(), k, v, scale=0.1, kv_len=40)
+    out, lse = FA.flash_attention_cuda(q, k, v, return_lse=True, scale=0.1)
+    with pytest.raises(ValueError, match="kv_len 65 outside"):
+        FA.flash_attention_bwd_cuda(q, k, v, out, lse, dout, scale=0.1,
+                                    kv_len=65)
+    k = k.requires_grad_()
+    out = ops.flash_attention(q, k, v, scale=0.1, kv_len=40)
+    (dk,) = torch.autograd.grad(out, (k,), dout)
+    assert float(dk[:, 40:].abs().max()) == 0.0
+    assert float(dk[:, :40].abs().max()) > 0.0
 
 
 @pytest.mark.cuda
 def test_reduced_training_step_kernel_path_matches_plain_path(cuda):
-    """olmo-1b at smoke width (head_dim 64, which the backward kernel
-    takes) on the card: one loss and gradient on the kernel path (flash
+    """olmo-1b at smoke width (head_dim 64) on the card: one loss and gradient on the kernel path (flash
     forward and backward kernels, remat recomputing each block) against
     the plain path (blocked_attention under autograd) from the same
     parameters and batch.  Loss within 1e-2; each gradient's cosine with
@@ -1315,6 +1347,37 @@ def test_reduced_training_step_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["flash_attention"] == 2 * cfg.num_layers     # remat
+    assert counts["flash_attention_bwd"] == cfg.num_layers
+    loss_p, _, grads_p = loss_and_grads(plain, params, batch)
+    assert abs(float(loss_k) - float(loss_p)) < 1e-2
+    for (path, a), b in zip(TR.flatten_with_paths(grads_k),
+                            TR.leaves(grads_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos > 0.99, (path, cos)
+
+
+@pytest.mark.cuda
+def test_reduced_gemma2_training_step_kernel_path_matches_plain_path(cuda):
+    """gemma2-2b at smoke width but its full head_dim 256 (window 16,
+    softcaps, G = 2) on the card: one loss and gradient through the
+    backward kernel at D = 256 against the plain path, as above."""
+    import dataclasses
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import make_batch
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config("gemma2-2b").reduced(),
+                              head_dim=256)
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, 2, 200, step=0).items()}
+    ops.reset_launch_counts()
+    loss_k, _, grads_k = loss_and_grads(kernel, params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
     assert counts["flash_attention_bwd"] == cfg.num_layers
     loss_p, _, grads_p = loss_and_grads(plain, params, batch)
     assert abs(float(loss_k) - float(loss_p)) < 1e-2

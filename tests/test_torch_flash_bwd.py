@@ -8,7 +8,8 @@ and row log-sum-exp) and ``kernels.ops.FlashAttentionFn`` (the autograd
 path that training takes) are held here against ``jax.vjp`` of
 ``blocked_attention`` on the same numpy-drawn q, k, v and output
 gradient, over causal and not, a sliding window, a softcap that binds,
-G = 1, 2, 4 and head_dim 64 and 128.
+G = 1, 2, 4, every head dim the forward takes (32, 64, 128, 192, 256)
+and a kv_len that cuts the keys.
 
 Tolerances, of each gradient's norm: 1e-4 in fp32 (the same fp32
 arithmetic in another order), 2e-2 in bf16 (the reference rounds the
@@ -51,6 +52,13 @@ CASES = {
     "window softcap G=4 D=128": (1, 100, 8, 2, 128,
                                  dict(window=30, softcap=5.0, q_boost=3.0)),
     "not causal G=4 D=128": (1, 65, 4, 1, 128, dict(causal=False)),
+    "causal G=2 D=32": (1, 90, 4, 2, 32, {}),
+    "causal G=2 D=192": (1, 80, 4, 2, 192, {}),
+    "window softcap G=2 D=256": (1, 100, 4, 2, 256,
+                                 dict(window=30, softcap=5.0, q_boost=3.0)),
+    "kv_len 70 of 100 not causal G=2 D=64": (1, 100, 4, 2, 64,
+                                             dict(causal=False, kv_len=70)),
+    "kv_len 50 of 80 causal G=2 D=256": (1, 80, 4, 2, 256, dict(kv_len=50)),
 }
 
 
@@ -68,9 +76,17 @@ def draw(B, S, H, KVH, D, dtype, seed, q_boost=1.0):
     return out
 
 
+def jax_blocked_64(q, k, v, *, kv_len=None, **kw):
+    """blocked_attention on the port's 64 x 64 tiles; a kv_len as its
+    per-sequence kv_lengths."""
+    if kv_len is not None:
+        kw["kv_lengths"] = jnp.full((q.shape[0],), kv_len, jnp.int32)
+    return jax_blocked(q, k, v, block_q=64, block_kv=64, **kw)
+
+
 def jax_grads(qj, kj, vj, dj, **kw):
     def f(q, k, v):
-        return jax_blocked(q, k, v, block_q=64, block_kv=64, **kw)
+        return jax_blocked_64(q, k, v, **kw)
     _, vjp = jax.vjp(f, qj, kj, vj)
     return [torch.from_numpy(np.array(g, np.float32)) for g in vjp(dj)]
 
@@ -128,7 +144,7 @@ def test_flash_attention_fn_matches_jax_vjp(case, dtype):
     out = ops.flash_attention(q, k, v, **kw)
     assert out.grad_fn is not None and "FlashAttentionFn" in \
         type(out.grad_fn).__name__
-    ref = jax_blocked(qj, kj, vj, block_q=64, block_kv=64, **kw)
+    ref = jax_blocked_64(qj, kj, vj, **kw)
     assert rel_err(out.detach(), torch.from_numpy(
         np.array(ref, np.float32))) < REL_TOL[dtype]
     got = torch.autograd.grad(out, (q, k, v), dt)
@@ -214,16 +230,14 @@ def test_cuda_wrappers_refuse_autograd_before_the_device():
         FA.flash_attention_cuda(q, k, v, scale=0.1)
 
 
-@pytest.mark.parametrize("D", [32, 192, 256])
-def test_backward_refuses_head_dims_it_does_not_take(D):
-    q = torch.zeros(1, 8, 2, D)
-    with pytest.raises(ValueError, match=f"head_dim {D}"):
-        FA.check_bwd(q, q, None)
-    ok = torch.zeros(1, 8, 2, 64)
-    FA.check_bwd(ok, ok, 8)
+@pytest.mark.parametrize("D", FA.HEAD_DIMS)
+def test_backward_takes_every_forward_head_dim(D):
+    """The backward kernel takes every head dim the forward does, so
+    FlashAttentionFn refuses none of them before the forward."""
+    FA.check_bwd(torch.zeros(1, 8, 2, D))
 
 
-def test_backward_refuses_kv_len():
-    q = torch.zeros(1, 8, 2, 64)
-    with pytest.raises(ValueError, match="kv_len 5"):
-        FA.check_bwd(q, q, 5)
+@pytest.mark.parametrize("D", [16, 96])
+def test_backward_refuses_a_head_dim_outside_them(D):
+    with pytest.raises(ValueError, match=f"head_dim {D} not in"):
+        FA.check_bwd(torch.zeros(1, 8, 2, D))

@@ -292,6 +292,34 @@ def test_checkpoint_async_save_and_wait(tmp_path):
     assert_tree_equal(t, ck.restore(1, t))
 
 
+def test_checkpoint_async_save_is_a_snapshot(tmp_path, monkeypatch):
+    """An async save writes the values the tensors held when ``save`` was
+    called, although the caller updates them in place (as AdamW does)
+    before the writer thread runs: the writer is held until then."""
+    import threading
+    ck = Checkpointer(str(tmp_path))
+    t = {"w32": torch.arange(6, dtype=torch.float32).reshape(2, 3),
+         "w16": torch.linspace(-1, 1, 5).to(torch.bfloat16)}
+    old = {k: v.clone() for k, v in t.items()}
+    updated = threading.Event()
+    write = ck._write
+
+    def held_write(step, host_items):
+        assert updated.wait(timeout=30)
+        write(step, host_items)
+
+    monkeypatch.setattr(ck, "_write", held_write)
+    ck.save(1, t, blocking=False)
+    for v in t.values():
+        v.mul_(-3).add_(7)
+    updated.set()
+    ck.wait()
+    got = ck.restore(1, t)
+    assert_tree_equal(old, got)
+    assert not torch.equal(got["w32"], t["w32"])
+    assert not torch.equal(got["w16"], t["w16"])
+
+
 def test_checkpoint_tmp_never_listed(tmp_path):
     ck = Checkpointer(str(tmp_path))
     os.makedirs(tmp_path / "step_00000009.tmp")
