@@ -20,7 +20,14 @@ fallback):
             lse is held against torch.logsumexp of the plain scores;
             timed at olmo-1b's, gemma2-2b's and nemotron-4-340b's heads
             and in fp32; its library call is SDPA's backward, or under a
-            softcap flex_attention's),
+            softcap flex_attention's; and the SSD scan's backward: at
+            mamba2-780m's training shape, x [4,2048,48,64] bf16, its
+            .reduced() widths, G = 2, jamba-1.5-large's 256 heads over
+            one group, a ragged tail, S below the chunk, an initial state
+            with a final state's gradient, the edges of every width, and
+            in fp32, each gradient within 1e-2 (bf16) or 1e-4 (fp32) of
+            its norm and dA within 1e-3; timed at mamba2-780m's and
+            jamba-1.5-large's heads and in fp32, with no library call),
             at the main path's shapes, the sweep shapes of
             ``tests/test_kernels.py`` and the edges of the kernels' tiles
             (the SSD scan also shows which variant ran: bf16 must take the
@@ -102,23 +109,26 @@ frame embeddings from --seed.
             every decoder layer (counted by capacity, 80 and 1500); the
             logits against the teacher-forced forward over the generated
             sequence.
-Then training, olmo-1b (1,176,764,416 parameters) and gemma2-2b
-(2,614,341,888: head_dim 256, G = 2, an attention softcap of 50) each at
-full published width and depth, random weights from --seed, batches of
-4 x 2048 tokens from the port's make_batch, AdamW, remat as the config
-sets it:
+Then training, olmo-1b (1,176,764,416 parameters), gemma2-2b
+(2,614,341,888: head_dim 256, G = 2, an attention softcap of 50) and
+mamba2-780m (780,148,992: 48 SSD layers), each at full published width
+and depth, random weights from --seed, batches of 4 x 2048 tokens from
+the port's make_batch, AdamW, remat as the config sets it:
 6. train    one loss and gradient on the kernel path against the plain
-            path (blocked_attention under autograd) from the same
-            parameters: the loss within 1e-2, every gradient's cosine at
-            least 0.99, the global norms within 3e-2; then 15 steps of the
-            launcher's train step at lr 1e-3, warmup 3, total 40 (the
-            schedule and gate of tests/test_training.py:17-31: the loss
-            down by more than 0.5), the launch counters reset just before
-            and read just after: the forward kernel twice a layer a step
-            (the forward and remat's recompute), the backward kernel's
-            three passes once a layer a step, nothing else; each step on
-            the host clock, peak memory, tokens/s and model-FLOPs
-            utilisation, then one step traced.
+            path (blocked_attention or ssd_chunked under autograd) from
+            the same parameters (mamba2-780m's at 4 of its 48 layers,
+            TRAIN_CHECK_LAYERS: past that bf16 rounding sets its
+            gradient on either path): the loss within 1e-2, every
+            gradient's cosine at least 0.99, the global norms within
+            3e-2; then 15 steps of the launcher's train step at lr 1e-3,
+            warmup 3, total 40 (the schedule and gate of
+            tests/test_training.py:17-31: the loss down by more than
+            0.5), the launch counters reset just before and read just
+            after, by mixer: the forward kernel twice a layer a step (the
+            forward and remat's recompute), the backward kernel's passes
+            once a layer a step, nothing else; each step on the host
+            clock, peak memory, tokens/s and model-FLOPs utilisation,
+            then one step traced.
 7. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -235,6 +245,13 @@ BWD_REL_TOL = {torch.bfloat16: 2e-2, torch.float32: 2e-5}
 # the forward's lse against torch.logsumexp of the plain scores (the same
 # fp32 function of the same inputs), relative and absolute
 LSE_TOL = 2e-5
+# the SSD backward kernel against its plain version: each gradient's error
+# within this share of its norm (the same fp32 sums in another order; bf16
+# also rounds dx, dB and dC once), dA within SSD_DA_REL_TOL: one sum a head
+# over every row of the batch, of terms that cancel (tests/test_torch_cuda.py)
+SSD_BWD_REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+SSD_DA_REL_TOL = 1e-3
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 # training: olmo-1b and gemma2-2b at full published width and depth, the
 # launcher's defaults but the size (batch 4 x 2048 tokens, AdamW, remat as
 # in the config), from --seed; the schedule and the gate of
@@ -242,7 +259,8 @@ LSE_TOL = 2e-5
 # loss down by more than 0.5).  Each arch's parameter count is the JAX
 # init's.
 TRAIN_ARCH = "olmo-1b"        # its shapes are the backward's main row
-TRAIN_PARAMS = {"olmo-1b": 1_176_764_416, "gemma2-2b": 2_614_341_888}
+TRAIN_PARAMS = {"olmo-1b": 1_176_764_416, "gemma2-2b": 2_614_341_888,
+                "mamba2-780m": 780_148_992}
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS = 15
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=40)
@@ -253,6 +271,14 @@ TRAIN_MIN_DROP = 0.5
 TRAIN_LOSS_TOL = 1e-2
 TRAIN_MIN_COS = 0.99          # every gradient leaf's cosine
 TRAIN_GNORM_TOL = 3e-2        # relative difference of the global norms
+# that step at full width but fewer layers: mamba2-780m's bf16 gradient at
+# random init is set by rounding past a few layers, on either path.
+# Against a float64 evaluation of the same loss (tools/
+# bf16_depth_noise.py) the worst leaf's cosine is 0.995 (kernel path) and
+# 0.997 (plain path) at 4 layers, 0.95 at 8, 0.79-0.87 at 12 and 0.25-0.36
+# at all 48, where the two bf16 paths are 0.50 apart; so the gate holds
+# the paths to each other at 4 layers, and the 48 train
+TRAIN_CHECK_LAYERS = {"mamba2-780m": 4}
 
 
 class SmokeFailure(RuntimeError):
@@ -1072,8 +1098,7 @@ def time_ssd(SSD, shape, gen):
         lambda: SSD.ssd_scan_cuda(*args, chunk=chunk, initial_state=st),
         lambda: SSD.ssd_scan_plain(*args, chunk=chunk, initial_state=st),
         {})
-    rows = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
-    flops = B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in rows)
+    flops = ssd_flops(B, S, H, P, N, chunk)
     x, dt, A, Bm, Cm = args
     nbytes = (2 * x.numel() * x.element_size()      # x read, y written
               + 2 * Bm.numel() * Bm.element_size()  # B, C read
@@ -1083,6 +1108,148 @@ def time_ssd(SSD, shape, gen):
     return dict(t, bound_ms=bound_ms, bound_by=bound_by,
                 shape=f"x [{B},{S},{H},{P}] bf16, B/C [{B},{S},{G},{N}] "
                       f"bf16, state [{B},{H},{P},{N}] fp32, chunk {chunk}")
+
+
+def ssd_flops(B: int, S: int, H: int, P: int, N: int, chunk: int,
+              backward: bool = False) -> float:
+    """Operations of one scan (or its backward) over S tokens: a chunk of q
+    rows and a head take q (q + 1)(N + P) + 4 q N P forward (C B^T, the
+    masked W x, the state's two products), and q (q + 1)(3 N + 2 P) +
+    10 q N P backward (C B^T and dy x^T again, and the three products of
+    dx, dB and dC over the rows; the state terms of br, dB and dC, and
+    dS_c, E_c and S_{c-1}^T dy's two products)."""
+    rows = [min(chunk, S - t0) for t0 in range(0, S, chunk)]
+    if backward:
+        return B * H * sum(q * (q + 1) * (3 * N + 2 * P) + 10 * q * N * P
+                           for q in rows)
+    return B * H * sum(q * (q + 1) * (N + P) + 4 * q * N * P for q in rows)
+
+
+def ssd_bwd_cases():
+    """(label, (B, S, H, P, G, N, chunk), dtype, initial state and dfinal)
+    of the SSD backward kernel: mamba2-780m's training batch first (the
+    kernels line's row), its .reduced() widths, G > 1, jamba-1.5-large's
+    256 heads over one group, a ragged tail, S below the chunk, an initial
+    state with a final state's gradient, every width at its edges; then
+    fp32."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    train = (TRAIN_B, TRAIN_S, 48, 64, 1, 128, 256)
+    cases = [("mamba2-780m training", train, bf16, False),
+             ("mamba2-780m .reduced()", (2, 128, 16, 16, 1, 16, 32), bf16,
+              False),
+             ("G=2", (2, 300, 8, 64, 2, 128, 64), bf16, False),
+             ("jamba-1.5-large heads, 256 over one group",
+              (1, 1024, 256, 64, 1, 128, 256), bf16, False),
+             ("ragged tail", (2, 333, 4, 64, 1, 128, 128), bf16, False),
+             ("S < chunk", (1, 20, 2, 32, 1, 32, 256), bf16, True),
+             ("initial state and dfinal", (2, 200, 4, 32, 2, 64, 64), bf16,
+              True),
+             ("P=N=128", (1, 300, 4, 128, 1, 128, 256), bf16, True),
+             ("P=128 N=16 G=4", (1, 150, 8, 128, 4, 16, 32), bf16, True),
+             ("P=16 N=128", (2, 70, 4, 16, 1, 128, 64), bf16, False)]
+    return cases + [(label, shape, f32, init)
+                    for label, shape, _, init in cases
+                    if label in ("mamba2-780m training", "ragged tail",
+                                 "initial state and dfinal", "P=N=128")]
+
+
+def ssd_bwd_inputs(shape, dtype, gen, init: bool):
+    """The scan's inputs (ssd_inputs), dy in x's dtype, and with ``init``
+    an initial state and a final state's gradient."""
+    B, S, H, P, G, N, _ = shape
+    args, st = ssd_inputs(B, S, H, P, G, N, dtype, gen, init=init)
+    dy = torch.randn(B, S, H, P, generator=gen, device="cuda").to(dtype)
+    dfinal = (torch.randn(B, H, P, N, generator=gen, device="cuda")
+              if init else None)
+    return args, st, dy, dfinal
+
+
+def check_ssd_bwd(gen):
+    """The SSD backward kernel against its plain version at every case,
+    from the same inputs and cotangents: each gradient within
+    SSD_BWD_REL_TOL of its norm, the four passes launched once each; then
+    its times at mamba2-780m's training shape, jamba-1.5-large's heads and
+    in fp32."""
+    from repro_torch.kernels import ssd_scan as SSD
+    main_err = 0.0
+    for label, shape, dt, init in ssd_bwd_cases():
+        args, st, dy, dfinal = ssd_bwd_inputs(shape, dt, gen, init)
+        B, S, H, P, G, N, chunk = shape
+        kw = dict(chunk=chunk, initial_state=st)
+        name = (f"ssd_scan_bwd {label} x [{B},{S},{H},{P}] G={G} N={N} "
+                f"chunk={chunk} init={init} {str(dt)[6:]}")
+        before = dict(SSD.ssd_scan_bwd_cuda.pass_launches)
+        got = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
+        torch.cuda.synchronize()
+        require(all(SSD.ssd_scan_bwd_cuda.pass_launches[p] == before[p] + 1
+                    for p in SSD.BWD_PASSES),
+                f"{name}: the passes {SSD.BWD_PASSES} did not each launch "
+                f"once")
+        want = SSD.ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+        rels, errs = [], []
+        for grad, g, w in zip(SSD_GRADS, got, want):
+            if w is None:
+                require(g is None, f"{name}: {grad} without an initial "
+                                   f"state")
+                continue
+            rel = rel_err(g, w)
+            tol = SSD_DA_REL_TOL if grad == "dA" else SSD_BWD_REL_TOL[dt]
+            require(g.dtype == w.dtype and g.shape == w.shape and rel < tol,
+                    f"{name}: {grad} is {rel:.3g} of its norm from the "
+                    f"plain version's (bound {tol})")
+            rels.append(f"{grad} {rel:.3g}")
+            errs.append(max_err(g, w))
+        if label == "mamba2-780m training" and dt == torch.bfloat16:
+            main_err = max(errs)
+        print(f"  {name}: rel_err {', '.join(rels)}; max_abs_err "
+              f"{max(errs):.3g}")
+        del args, st, dy, dfinal, got, want
+    t = time_ssd_bwd(SSD, ssd_bwd_cases()[0][1], torch.bfloat16, gen)
+    extra = []
+    for model, shape, dt in (
+            ("jamba-1.5-large heads", (1, TRAIN_S, 256, 64, 1, 128, 256),
+             torch.bfloat16),
+            ("mamba2-780m training, fp32", ssd_bwd_cases()[0][1],
+             torch.float32)):
+        r = time_ssd_bwd(SSD, shape, dt, gen)
+        r["model"], r["main_path"], r["launches"] = model, False, 0
+        print(f"  ssd_scan_bwd at {r['shape']}: {times_text(r)} "
+              f"(at fp32's CUDA cores: bound {r['bound_fp32_ms']!r} ms)")
+        extra.append(r)
+    return dict(name="ssd_scan_bwd", route="cuda",
+                source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                replaces="src/repro/models/mamba2.py:79",
+                replaces_note=("no Pallas kernel has a backward: the JAX "
+                               "model trains Mamba-2 through ssd_chunked, "
+                               "which XLA differentiates"),
+                max_abs_err=main_err, **t, models=extra)
+
+
+def time_ssd_bwd(SSD, shape, dtype, gen):
+    """Kernel and plain times of the backward (no initial state, as in
+    training), beside the card's bound: ssd_flops' backward operations at
+    the inputs' type's peak (bf16: the tensor cores'; the kernel runs them
+    on fp32 CUDA cores, whose bound stands beside it as bound_fp32_ms), x,
+    dy, B, C and dt read once, dx, dB, dC and ddt written once.  No
+    PyTorch call computes it."""
+    B, S, H, P, G, N, chunk = shape
+    args, _, dy, _ = ssd_bwd_inputs(shape, dtype, gen, False)
+    kw = dict(chunk=chunk)
+    t = kernel_times(lambda: SSD.ssd_scan_bwd_cuda(*args, dy, **kw),
+                     lambda: SSD.ssd_scan_bwd_plain(*args, dy, **kw), {},
+                     iters=10)
+    x, dt, A, Bm, Cm = args
+    flops = ssd_flops(B, S, H, P, N, chunk, backward=True)
+    nbytes = (3 * x.numel() * x.element_size()      # x, dy read, dx written
+              + 4 * Bm.numel() * Bm.element_size()  # B, C read, dB, dC
+              + 2 * dt.numel() * 4 + 2 * A.numel() * 4)   # dt/ddt, A/dA
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    bound_ms, bound_by = bound(flops, nbytes, peak)
+    return dict(t, bound_ms=bound_ms, bound_by=bound_by,
+                bound_fp32_ms=bound(flops, nbytes, PEAK_FP32_FLOPS)[0],
+                flops=flops, bytes=nbytes,
+                shape=f"x/dy [{B},{S},{H},{P}] {str(dtype)[6:]}, B/C "
+                      f"[{B},{S},{G},{N}], chunk {chunk}, no initial state")
 
 
 def flash_bwd_cases():
@@ -1882,7 +2049,8 @@ def run_encdec(cfg, params, seed: int):
             f"holds {cache['cross_k'].shape[2]} after the prefill, not the "
             f"encoder's {ENCDEC_FRAMES}")
     want = {"flash_attention": E + 2 * L, "flash_attention_bwd": 0,
-            "paged_attention": 2 * L * decodes, "ssd_scan": 0}
+            "paged_attention": 2 * L * decodes, "ssd_scan": 0,
+            "ssd_scan_bwd": 0}
     require(counts == want, f"main path: launches {counts}, expected {want}")
     require(noncausal == E + L, f"main path: {noncausal} flash launches not "
                                 f"causal, expected {E + L}")
@@ -2143,28 +2311,39 @@ def train_batch(cfg, step: int, seed: int):
 
 
 def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
-    """Gate a training run's launches: every attention layer's forward
-    kernel twice a step (the forward, and remat's recompute in the
-    backward pass), its backward kernel once a step in each of its three
+    """Gate a training run's launches, by mixer: every attention layer's
+    flash kernel and every Mamba layer's SSD scan twice a step (the
+    forward, and remat's recompute in the backward pass; the scan on the
+    tensor cores), each layer's backward kernel once a step in each of its
     passes, and nothing else."""
     from repro_torch.kernels import flash_attention as FA
-    L = cfg.num_layers
-    want = {"flash_attention": 2 * L * steps,
-            "flash_attention_bwd": L * steps,
-            "paged_attention": 0, "ssd_scan": 0}
+    from repro_torch.kernels import ssd_scan as SSD
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
+    n_mamba = cfg.num_layers - n_attn
+    want = {"flash_attention": 2 * n_attn * steps,
+            "flash_attention_bwd": n_attn * steps,
+            "paged_attention": 0, "ssd_scan": 2 * n_mamba * steps,
+            "ssd_scan_bwd": n_mamba * steps}
     require(counts == want, f"{what}: launches {counts}, expected {want}")
-    passes = {p: L * steps for p in FA.BWD_PASSES}
-    require(kinds["flash_attention_bwd"] == passes,
-            f"{what}: backward passes {kinds['flash_attention_bwd']}, "
-            f"expected {passes}")
+    require(kinds["ssd_scan"] == ({"wgmma": counts["ssd_scan"]}
+                                  if n_mamba else {}),
+            f"{what}: ssd_scan variants {kinds['ssd_scan']}")
+    for name, passes, layers in (
+            ("flash_attention_bwd", FA.BWD_PASSES, n_attn),
+            ("ssd_scan_bwd", SSD.BWD_PASSES, n_mamba)):
+        want = {p: layers * steps for p in passes} if layers else {}
+        require(kinds[name] == want,
+                f"{what}: {name} passes {kinds[name]}, expected {want}")
     print(f"  {what}: launches {counts}, backward passes "
-          f"{kinds['flash_attention_bwd']}")
+          f"{kinds['flash_attention_bwd'] or kinds['ssd_scan_bwd']}")
 
 
 def check_train_step(cfg, params, seed: int) -> None:
-    """One loss and gradient of the first batch on the kernel path (flash
-    forward and backward kernels, remat) against the plain path
-    (blocked_attention under autograd), from the same parameters."""
+    """One loss and gradient of the first batch on the kernel path (the
+    flash or SSD forward and backward kernels, remat) against the plain
+    path (blocked_attention or ssd_chunked under autograd), from the same
+    parameters."""
     from repro_torch import tree as TR
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
@@ -2211,6 +2390,7 @@ def run_train(arch: str, seed: int):
     from repro_torch.configs import get_config
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
+    from repro_torch.models.transformer import block_pattern, num_repeats
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_train_step)
     from torch.profiler import ProfilerActivity, profile
@@ -2220,16 +2400,27 @@ def run_train(arch: str, seed: int):
     t0 = time.monotonic()
     params, opt = init_train_state(model, tcfg, seed, device="cuda")
     n_params = sum(t.numel() for t in TR.leaves(params))
+    ssd = ssd_shape(cfg, TRAIN_S) if cfg.ssm is not None else None
+    mixer = (f"{ssd[2]} SSD heads, P {ssd[3]}, N {ssd[5]}, G {ssd[4]}, "
+             f"chunk {ssd[6]}" if ssd else
+             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
+             f"window {cfg.sliding_window}, attention softcap "
+             f"{cfg.attn_logit_softcap:g}")
     print(f"[train] {cfg.name} full width, {n_params} parameters, "
-          f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
-          f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
-          f"window {cfg.sliding_window}, attention softcap "
-          f"{cfg.attn_logit_softcap:g}, remat={cfg.remat}, "
-          f"batch {TRAIN_B} x {TRAIN_S} tokens, AdamW {TRAIN_OPT}, "
-          f"initialised in {time.monotonic() - t0:.1f} s")
+          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {mixer}, "
+          f"remat={cfg.remat}, batch {TRAIN_B} x {TRAIN_S} tokens, AdamW "
+          f"{TRAIN_OPT}, initialised in {time.monotonic() - t0:.1f} s")
     require(n_params == TRAIN_PARAMS[arch],
             f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS[arch]}")
-    check_train_step(cfg, params, seed)
+    if arch in TRAIN_CHECK_LAYERS:
+        check = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS[arch])
+        print(f"  train check at full width, {check.num_layers} of "
+              f"{cfg.num_layers} layers (TRAIN_CHECK_LAYERS)")
+        check_train_step(check, build_model(check).init(seed,
+                                                         device="cuda"),
+                         seed)
+    else:
+        check_train_step(cfg, params, seed)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2259,16 +2450,25 @@ def run_train(arch: str, seed: int):
     median = float(np.median(host_ms[1:]))
     tokens = TRAIN_B * TRAIN_S
     pairs = TRAIN_S * (TRAIN_S + 1) // 2     # no window binds at 2048
-    attn = 12.0 * cfg.num_layers * cfg.num_heads * cfg.head_dim * \
-        TRAIN_B * pairs
-    model_flops = 6.0 * n_params * tokens + attn
+    n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
+    attn = 12.0 * n_attn * cfg.num_heads * cfg.head_dim * TRAIN_B * pairs
+    # the scan's own operations, forward and backward, in every Mamba layer
+    scan = 0.0
+    if ssd:
+        B_, S_, H, P, G, N, chunk = ssd
+        scan = (cfg.num_layers - n_attn) * (
+            ssd_flops(TRAIN_B, S_, H, P, N, chunk)
+            + ssd_flops(TRAIN_B, S_, H, P, N, chunk, backward=True))
+    model_flops = 6.0 * n_params * tokens + attn + scan
     print(f"  train: loss {losses[0]!r} -> {losses[-1]!r} in {TRAIN_STEPS} "
           f"steps; host clock {median!r} ms a step (median of steps 1-"
           f"{TRAIN_STEPS - 1}: "
           + ", ".join(f"{t:.1f}" for t in sorted(host_ms[1:])) + ")")
     print(f"  train: peak memory {peak} bytes; {tokens / median * 1e3!r} "
           f"tokens/s; model FLOPs {model_flops:.4g} a step (6 x parameters "
-          f"x tokens + 12 L H D B pairs of attention, remat not counted): "
+          f"x tokens + 12 L H D B pairs of attention + the SSD scan's "
+          f"forward and backward operations a Mamba layer, {scan:.4g}; "
+          f"remat not counted): "
           f"{model_flops / (median * 1e-3) / 1e12!r} TFLOP/s, MFU "
           f"{model_flops / (median * 1e-3) / PEAK_BF16_FLOPS!r} of "
           f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s")
@@ -2306,7 +2506,7 @@ def count_launches(kernels, launches, by_model, kinds_by_model,
             if "launches" not in row:
                 row["launches"] = (
                     by_model[row["model"]][name]
-                    if name == "flash_attention_bwd" else
+                    if name.endswith("_bwd") else
                     kinds_by_model[row["model"]][name].get(
                         row[kind_of(name)], 0))
             require(row["launches"] > 0,
@@ -2314,10 +2514,11 @@ def count_launches(kernels, launches, by_model, kinds_by_model,
                     f"{row['model']}'s {kind_of(name)} "
                     f"{row.get(kind_of(name))}")
         k["passed"] = True
-        if name == "flash_attention_bwd":    # each pass, in training
-            k["pass_launches"] = {p: sum(kinds_by_model[t][name][p]
+        if name.endswith("_bwd"):            # each pass, in training
+            passes = {p for t in trains for p in kinds_by_model[t][name]}
+            k["pass_launches"] = {p: sum(kinds_by_model[t][name].get(p, 0)
                                          for t in trains)
-                                  for p in kinds_by_model[trains[0]][name]}
+                                  for p in sorted(passes)}
         if name == "ssd_scan":           # the variants the main path ran
             k["variant_launches"] = {v: sum(
                 kinds[name].get(v, 0) for kinds in kinds_by_model.values())
@@ -2395,7 +2596,8 @@ def main() -> int:
                            gen),
                check_paged(max_len, prompt_lens, models, encdec, gen),
                check_ssd(prompt_lens, hybrids, gen),
-               check_flash_bwd(gen)]
+               check_flash_bwd(gen),
+               check_ssd_bwd(gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
 
@@ -2496,7 +2698,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. training: olmo-1b, then gemma2-2b (the backward at D = 256 under
-    # its softcap), at full width, the forward and backward kernels
+    # its softcap), then mamba2-780m (the SSD scan and its backward), at
+    # full width, the forward and backward kernels
     trains = [f"{arch} training" for arch in TRAIN_PARAMS]
     for arch, train in zip(TRAIN_PARAMS, trains):
         by_model[train], kinds_by_model[train] = run_train(arch, args.seed)

@@ -6,9 +6,10 @@ port's copy of ``examples/quickstart.py``.
         [--arch olmo-1b] [--device cpu]
 
 On the card (the default) the model runs at its full published width,
-and every attention layer's backward runs the flash attention backward
+every attention layer's backward runs the flash attention backward
 kernel, which takes every head dim the forward does (gemma2-2b's 256
-and nemotron-4-340b's 192 too); ``--device cpu`` runs the smoke-test
+and nemotron-4-340b's 192 too), and every Mamba-2 layer's the SSD-scan
+backward kernel (mamba2-780m); ``--device cpu`` runs the smoke-test
 width.  It trains
 first and serves the same parameters after: serving runs under inference
 mode, whose tensors autograd cannot use.  Only the families the port

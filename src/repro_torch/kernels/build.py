@@ -47,6 +47,10 @@ SIGNATURES = {
     # (bf16 only), B, S, H, G, P, N, chunk, stream
     "ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                  _I, _P],
+    # x, dt, A, Bm, Cm, initial_state (or NULL), dy, dfinal (or NULL), dx,
+    # ddt, dA, dB, dC, dinit (or NULL), workspace, B, S, H, G, P, N, chunk,
+    # stream
+    "ssd_scan_bwd": [_P] * 15 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()
@@ -131,15 +135,16 @@ def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would have to carry a gradient through a launch
     here: a kernel's output, written through a raw pointer, has no
     ``grad_fn``, so a backward pass would leave the inputs without a
-    gradient and say nothing.  Only ``kernels.ops.FlashAttentionFn``, whose
-    forward runs with grad disabled, gives a kernel a backward."""
+    gradient and say nothing.  Only ``kernels.ops.FlashAttentionFn`` and
+    ``kernels.ops.SSDScanFn``, whose forwards run with grad disabled, give
+    a kernel a backward."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad
                                        for t in tensors):
         raise RuntimeError(
             f"{kernel}: called with grad enabled on inputs that require "
             f"grad, but the CUDA kernel's output carries no gradient; "
-            f"train through kernels.ops (flash attention has a backward "
-            f"kernel), or call it under torch.no_grad()")
+            f"train through kernels.ops (flash attention and the SSD scan "
+            f"have backward kernels), or call it under torch.no_grad()")
 
 
 def check(err: int, kernel: str) -> None:

@@ -73,6 +73,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "ssd_common.cuh"
 
 namespace {
 
@@ -80,28 +81,7 @@ using bf16 = __nv_bfloat16;
 
 constexpr int TILE = 64;          // rows of a C, B or x tile: wgmma's M
 constexpr int WG = 128;           // a warpgroup
-constexpr int MAX_Q = 256;        // the largest chunk
 constexpr float LOG2E = 1.4426950408889634f;
-
-// One warp's inclusive prefix sum of v[0, n) in shared memory, n a multiple
-// of 32: each lane sums a run of n / 32, then the lanes' totals are scanned
-// with shuffles.
-__device__ void warp_scan(float* v, int n, int lane) {
-  const int per = n / 32, base = lane * per;
-  float run = 0.f;
-  for (int i = 0; i < per; ++i) run += v[base + i];
-  float incl = run;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const float t = __shfl_up_sync(0xffffffffu, incl, o);
-    if (lane >= o) incl += t;
-  }
-  float acc = incl - run;
-  for (int i = 0; i < per; ++i) {
-    acc += v[base + i];
-    v[base + i] = acc;
-  }
-}
 
 // ------------------------------------------------- bf16: the tensor cores
 
@@ -788,19 +768,6 @@ cudaError_t launch_simt(const void* x, const void* dt, const void* A,
 }
 
 // ------------------------------------------------------------ dispatching
-
-// f(std::integral_constant<int, d>) for d, a head or state width the
-// kernels take; cudaErrorInvalidValue for any other.
-template <typename F>
-cudaError_t by_width(int d, F&& f) {
-  switch (d) {
-    case 16: return f(std::integral_constant<int, 16>{});
-    case 32: return f(std::integral_constant<int, 32>{});
-    case 64: return f(std::integral_constant<int, 64>{});
-    case 128: return f(std::integral_constant<int, 128>{});
-    default: return cudaErrorInvalidValue;
-  }
-}
 
 bool valid_dims(int B, int S, int H, int G, int Q) {
   return B > 0 && S > 0 && G > 0 && H % G == 0 && Q >= 1 && Q <= MAX_Q;

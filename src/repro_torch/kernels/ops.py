@@ -6,11 +6,12 @@ other branch and no fallback: a CUDA tensor launches the kernel or raises.
 (This replaces the JAX package's ``_auto_interpret``, which picked the
 Pallas interpreter off the TPU.)
 
-Flash attention also carries a gradient: under autograd (grad enabled and
-q, k or v requiring grad) it goes through ``FlashAttentionFn``, whose
-forward and backward each take the kernel or the plain version by the
-same rule (``flash_attention_bwd`` on the card).  The other kernels'
-wrappers refuse to run under autograd (``build.refuse_grad``).
+Flash attention and the SSD scan also carry a gradient: under autograd
+(grad enabled and an input requiring grad) they go through
+``FlashAttentionFn`` and ``SSDScanFn``, whose forward and backward each
+take the kernel or the plain version by the same rule
+(``flash_attention_bwd`` and ``ssd_scan_bwd`` on the card).  The CUDA
+wrappers themselves refuse to run under autograd (``build.refuse_grad``).
 """
 from __future__ import annotations
 
@@ -28,16 +29,18 @@ CUDA_WRAPPERS = {
     "flash_attention_bwd": _fa.flash_attention_bwd_cuda,
     "paged_attention": _pa.paged_attention_cuda,
     "ssd_scan": _ssd.ssd_scan_cuda,
+    "ssd_scan_bwd": _ssd.ssd_scan_bwd_cuda,
 }
 
 # kernel name -> the wrapper's counts by kind, kept beside ``.launches``:
-# flash by window, its backward by pass (each call launches all three),
-# paged by slot-cache capacity, the SSD scan by variant
+# flash by window, each backward by pass (each call launches all its
+# passes), paged by slot-cache capacity, the SSD scan by variant
 KIND_COUNTS = {
     "flash_attention": "window_launches",
     "flash_attention_bwd": "pass_launches",
     "paged_attention": "capacity_launches",
     "ssd_scan": "variant_launches",
+    "ssd_scan_bwd": "pass_launches",
 }
 
 
@@ -112,10 +115,48 @@ def paged_attention(q, k_pages, v_pages, page_tables, lengths, **kw):
     return _pa.paged_attention_plain(*args, **kw)
 
 
+class SSDScanFn(torch.autograd.Function):
+    """The SSD scan with a gradient: the forward runs the scan (CUDA
+    tensors: ``ssd_scan_cuda``, after ``check_bwd`` refuses what the
+    backward kernel does not take; CPU tensors: ``ssd_scan_plain``) and
+    keeps only its inputs; the backward (``ssd_scan_bwd_cuda`` or
+    ``ssd_scan_bwd_plain``) recomputes the chunk states it needs, so the
+    forward kernel and the serving path stay as they are.  Returns
+    (y, final state); a final state no loss uses has a zero gradient."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, initial_state, chunk: int):
+        kw = dict(chunk=chunk, initial_state=initial_state)
+        if _on_cuda(x, dt, A, Bm, Cm):
+            _ssd.check_bwd(x, Bm)
+            y, final = _ssd.ssd_scan_cuda(x, dt, A, Bm, Cm, **kw)
+        else:
+            y, final = _ssd.ssd_scan_plain(x, dt, A, Bm, Cm, **kw)
+        ctx.save_for_backward(x, dt, A, Bm, Cm, initial_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        x, dt, A, Bm, Cm, initial_state = ctx.saved_tensors
+        args = (x, dt, A, Bm, Cm, dy.contiguous(), dfinal.contiguous())
+        kw = dict(chunk=ctx.chunk, initial_state=initial_state)
+        if _on_cuda(x, dt, A, Bm, Cm):
+            grads = _ssd.ssd_scan_bwd_cuda(*args, **kw)
+        else:
+            grads = _ssd.ssd_scan_bwd_plain(*args, **kw)
+        return (*grads, None)
+
+
 def ssd_scan(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     """Mamba-2 SSD chunked scan; see ``kernels.ssd_scan``.  Returns
-    (y [B,S,H,P] in x's dtype, final state [B,H,P,N] fp32)."""
+    (y [B,S,H,P] in x's dtype, final state [B,H,P,N] fp32).  Under
+    autograd it goes through ``SSDScanFn``."""
     args = (x, dt, A, Bm, Cm)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (*args,
+                                                        initial_state)):
+        return SSDScanFn.apply(*args, initial_state, chunk)
     extra = () if initial_state is None else (initial_state,)
     if _on_cuda(*args, *extra):
         return _ssd.ssd_scan_cuda(*args, chunk=chunk,

@@ -11,6 +11,11 @@ chunk, then each chunk's rows from the state before it and the
 decay-masked ``(C Bᵀ ∘ L ∘ dt) x`` — so the CPU tests exercise it, and
 ``chip_smoke.py`` holds the kernel against it on the card.
 ``kernels.ops.ssd_scan`` picks between the two by the tensors' device.
+
+The backward (training): ``ssd_scan_bwd_cuda`` launches
+``csrc/ssd_scan_bwd.cu`` (fp32 on CUDA cores, four launches), and
+``ssd_scan_bwd_plain`` computes the same gradient by its explicit
+formulas; ``kernels.ops.SSDScanFn`` takes one or the other by device.
 """
 from __future__ import annotations
 
@@ -154,7 +159,8 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
     the kernel does not take.  Counts its launches in ``.launches``, and
     in ``.variant_launches`` by the kernel that ran: "wgmma" (bf16, the
     tensor cores) or "cuda_core" (fp32).  Raises under autograd
-    (``build.refuse_grad``): the scan has no backward kernel yet."""
+    (``build.refuse_grad``: ``kernels.ops.SSDScanFn`` is the path that
+    carries a gradient)."""
     build.refuse_grad("ssd_scan", x, dt, A, Bm, Cm, initial_state)
     _check(x, dt, A, Bm, Cm, chunk, initial_state)
     Bsz, S, H, P = x.shape
@@ -187,3 +193,208 @@ def ssd_scan_cuda(x, dt, A, Bm, Cm, *, chunk: int, initial_state=None):
 
 ssd_scan_cuda.launches = 0
 ssd_scan_cuda.variant_launches = {"wgmma": 0, "cuda_core": 0}
+
+
+# ------------------------------------------------------------ the backward
+
+# the backward's four launches (csrc/ssd_scan_bwd.cu): each chunk's own
+# state and its dy C^T term; the states passed forward and their
+# gradients passed back; the rows of every chunk; the cumsum of dcum, dA
+# and the group sums of dB and dC
+BWD_PASSES = ("chunk", "state", "rows", "reduce")
+
+
+def ssd_scan_bwd_plain(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
+                       initial_state=None):
+    """(dx, ddt, dA, dB, dC, dinit): the gradient of ``ssd_scan_plain``'s
+    (y, final state) against (dy, dfinal), from the forward's inputs, by
+    the formulas of ``csrc/ssd_scan_bwd.cu`` in plain torch and fp32, all
+    chunks at once at ``effective_chunk(chunk, S)`` (the forward's).
+    dx, dB and dC come back in their inputs' dtype; ddt, dA and dinit in
+    fp32; dinit is None without an initial state.
+
+    Per chunk and head, with cum_i = sum_{k<=i} dt_k A, S_{c-1} the state
+    before the chunk and G_c the gradient of the state after it
+    (G_{nc-1} = dfinal):
+      G_{c-1} = exp(cum_last) G_c + sum_i exp(cum_i) dy_i C_i^T,
+      dinit = G_{-1};
+      br_j = sum_{i>=j} (C_i . B_j) exp(cum_i - cum_j) dy_i
+             + exp(cum_last - cum_j) G_c B_j;   dx_j = dt_j br_j;
+      dB_j = sum over the group's heads of
+             sum_{i>=j} exp(cum_i - cum_j) dt_j (dy_i . x_j) C_i
+             + exp(cum_last - cum_j) dt_j G_c^T x_j;
+      dC_i = sum over the group's heads of exp(cum_i) S_{c-1}^T dy_i
+             + sum_{j<=i} exp(cum_i - cum_j) dt_j (dy_i . x_j) B_j;
+      ddt_j = x_j . br_j + A sum_{i>=j} dcum_i, dA = sum dt_k dcum's
+      reverse cumsum over the chunk, where with
+      M_ij = (C_i . B_j) exp(cum_i - cum_j) dt_j (dy_i . x_j) (j <= i) and
+      k_j = exp(cum_last - cum_j) dt_j <G_c, x_j B_j^T>:
+      dcum_i = sum_j M_ij - sum_i' M_i'i + exp(cum_i) dy_i . (S_{c-1} C_i)
+               - k_i, and the last row adds
+               sum_j k_j + exp(cum_last) <G_c, S_{c-1}>.
+    The ragged tail is neutralised by dt = 0, as in the forward."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    R = H // G
+    Q = effective_chunk(chunk, S)
+    pad = (-S) % Q
+    nc = (S + pad) // Q
+
+    def chunks(t, *tail):
+        t = F.pad(t.float(), (0, 0) * (t.dim() - 2) + (0, pad))
+        return t.view(Bsz, nc, Q, *tail)
+    xf, dyf = chunks(x, G, R, P), chunks(dy, G, R, P)
+    dtf = chunks(dt, G, R)
+    Bc, Cc = chunks(Bm, G, N), chunks(Cm, G, N)
+    Af = A.float().view(G, R)
+    cum = torch.cumsum(dtf * Af, dim=2)                    # [B, c, Q, G, R]
+    last = cum[:, :, -1]                                   # [B, c, G, R]
+    w = torch.exp(last[:, :, None] - cum)                  # exp(last - cum_j)
+
+    # the states passed forward (prev[:, c] = S_{c-1}) and their gradients
+    # passed back (Gs[:, c] = G_c)
+    dS = torch.einsum("bcjgrp,bcjgn->bcgrpn", (w * dtf)[..., None] * xf, Bc)
+    E = torch.einsum("bcigrp,bcign->bcgrpn",
+                     torch.exp(cum)[..., None] * dyf, Cc)
+    state = (torch.zeros((Bsz, G, R, P, N), device=x.device)
+             if initial_state is None
+             else initial_state.float().reshape(Bsz, G, R, P, N))
+    decay = torch.exp(last)[..., None, None]
+    prev = []
+    for c in range(nc):
+        prev.append(state)
+        state = decay[:, c] * state + dS[:, c]
+    prev = torch.stack(prev, 1)                            # [B, c, G, R, P, N]
+    g = (torch.zeros((Bsz, G, R, P, N), device=x.device) if dfinal is None
+         else dfinal.float().reshape(Bsz, G, R, P, N))
+    Gs = [None] * nc
+    for c in reversed(range(nc)):
+        Gs[c] = g
+        g = decay[:, c] * g + E[:, c]
+    Gs = torch.stack(Gs, 1)
+    dinit = None if initial_state is None else g.reshape(Bsz, H, P, N)
+
+    # the chunks' rows: L_ij = exp(cum_i - cum_j) for j <= i, selected
+    # before the exp (above the diagonal the exponent is positive)
+    causal = torch.ones((Q, Q), dtype=torch.bool, device=x.device).tril()
+    seg = cum[:, :, :, None] - cum[:, :, None]             # [B, c, i, j, G, R]
+    L = torch.exp(torch.where(causal[:, :, None, None], seg, -torch.inf))
+    scores = torch.einsum("bcign,bcjgn->bcijg", Cc, Bc)[..., None]
+    dyx = torch.einsum("bcigrp,bcjgrp->bcijgr", dyf, xf)
+    Wt = L * dtf[:, :, None] * dyx                         # exp dt_j (dy_i.x_j)
+    GB = torch.einsum("bcgrpn,bcjgn->bcjgrp", Gs, Bc)      # G_c B_j
+    br = (torch.einsum("bcijgr,bcigrp->bcjgrp", scores * L, dyf)
+          + w[..., None] * GB)
+    dx = dtf[..., None] * br
+    ddt = (xf * br).sum(-1)
+    Gx = torch.einsum("bcgrpn,bcjgrp->bcjgrn", Gs, xf)     # G_c^T x_j
+    dB = (torch.einsum("bcijgr,bcign->bcjgn", Wt, Cc)
+          + torch.einsum("bcjgr,bcjgrn->bcjgn", w * dtf, Gx))
+    Sd = torch.einsum("bcgrpn,bcigrp->bcigrn", prev, dyf)  # S_{c-1}^T dy_i
+    ecum = torch.exp(cum)
+    dC = (torch.einsum("bcigr,bcigrn->bcign", ecum, Sd)
+          + torch.einsum("bcijgr,bcjgn->bcign", Wt, Bc))
+
+    # dcum, then its reverse cumsum within each chunk gives ddt's and dA's
+    # part through cum
+    M = scores * Wt                                        # [B, c, i, j, G, R]
+    k = w * dtf * (xf * GB).sum(-1)                        # [B, c, j, G, R]
+    dcum = (M.sum(3) - M.sum(2) + ecum * (Sd * Cc[:, :, :, :, None]).sum(-1)
+            - k)
+    dcum[:, :, -1] += k.sum(2) + torch.exp(last) * (Gs * prev).sum((-1, -2))
+    ddA = torch.flip(torch.cumsum(torch.flip(dcum, [2]), 2), [2])
+    ddt = ddt + Af * ddA
+    dA = (dtf * ddA).sum((0, 1, 2)).reshape(H)
+
+    def rows(t, *tail):
+        return t.reshape(Bsz, nc * Q, *tail)[:, :S]
+    return (rows(dx, H, P).to(x.dtype), rows(ddt, H), dA,
+            rows(dB, G, N).to(Bm.dtype), rows(dC, G, N).to(Cm.dtype), dinit)
+
+
+def check_bwd(x, Bm) -> None:
+    """What the backward kernel does not take, refused before the forward
+    launches (``kernels.ops.SSDScanFn``): it takes every head_dim and
+    state_dim the forward does (DIMS), in both dtypes, so only those
+    outside are refused."""
+    P, N = x.shape[-1], Bm.shape[-1]
+    if P not in DIMS or N not in DIMS:
+        raise ValueError(f"ssd_scan_bwd: head_dim {P} / state_dim {N} not "
+                         f"in {DIMS}")
+    if x.dtype not in DTYPES:
+        raise TypeError(f"ssd_scan_bwd: x is {x.dtype}, the kernel takes "
+                        f"{DTYPES}")
+
+
+def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int,
+                         chunk: int) -> int:
+    """fp32 elements of the backward kernel's workspace
+    (csrc/ssd_scan_bwd.cu): the states S_{c-1} and their gradients G_c,
+    [B, H, nc, P, N] each; cum and dcum, [B, H, nc, Q] each; the last
+    row's extra term of dcum, [B, H, nc]; the per-head partials of dB and
+    dC, [B, S, H, N] each."""
+    Q = effective_chunk(chunk, S)
+    nc = -(-S // Q)
+    return B * H * nc * (2 * P * N + 2 * Q + 1) + 2 * B * S * H * N
+
+
+def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
+                      initial_state=None):
+    """Launch ``csrc/ssd_scan_bwd.cu`` (four launches, fp32 on CUDA cores:
+    BWD_PASSES) on the current stream; returns what
+    ``ssd_scan_bwd_plain`` returns, and raises on anything the kernel does
+    not take.  Its workspace comes from the caching allocator for this
+    call alone (autograd runs a backward on its own thread).  Counts its
+    calls in ``.launches`` and each pass's launches in
+    ``.pass_launches``."""
+    build.refuse_grad("ssd_scan_bwd", x, dt, A, Bm, Cm, dy, dfinal,
+                      initial_state)
+    check_bwd(x, Bm)
+    _check(x, dt, A, Bm, Cm, chunk, initial_state)
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    for name, t, shape, dtype in (
+            ("dy", dy, x.shape, x.dtype),
+            ("dfinal", dfinal, (Bsz, H, P, N), torch.float32)):
+        if t is None:
+            continue
+        if (t.device != x.device or t.dtype != dtype
+                or tuple(t.shape) != tuple(shape) or not t.is_contiguous()
+                or (dtype == torch.bfloat16 and t.data_ptr() % 16)):
+            raise ValueError(
+                f"ssd_scan_bwd: {name} must be a contiguous {dtype} tensor "
+                f"of shape {tuple(shape)} on {x.device}, got {t.dtype} "
+                f"{tuple(t.shape)} on {t.device}")
+    Q = effective_chunk(chunk, S)
+    dx = torch.empty_like(x)
+    ddt = torch.empty((Bsz, S, H), dtype=torch.float32, device=x.device)
+    dA = torch.empty((H,), dtype=torch.float32, device=x.device)
+    dB, dC = torch.empty_like(Bm), torch.empty_like(Cm)
+    dinit = (None if initial_state is None else
+             torch.empty((Bsz, H, P, N), dtype=torch.float32,
+                         device=x.device))
+    ws = torch.empty(bwd_workspace_floats(Bsz, S, H, P, N, Q),
+                     dtype=torch.float32, device=x.device)
+    lib = build.load()
+    fn = (lib.ssd_scan_bwd_bf16 if x.dtype == torch.bfloat16
+          else lib.ssd_scan_bwd_f32)
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                 Cm.data_ptr(), ptr(initial_state), dy.data_ptr(),
+                 ptr(dfinal), dx.data_ptr(), ddt.data_ptr(), dA.data_ptr(),
+                 dB.data_ptr(), dC.data_ptr(), ptr(dinit), ws.data_ptr(),
+                 Bsz, S, H, G, P, N, Q, stream)
+    build.check(err, "ssd_scan_bwd")
+    with _count_lock:
+        ssd_scan_bwd_cuda.launches += 1
+        for name in BWD_PASSES:
+            ssd_scan_bwd_cuda.pass_launches[name] += 1
+    return dx, ddt, dA, dB, dC, dinit
+
+
+ssd_scan_bwd_cuda.launches = 0
+ssd_scan_bwd_cuda.pass_launches = dict.fromkeys(BWD_PASSES, 0)

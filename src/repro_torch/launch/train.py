@@ -12,8 +12,8 @@ Trains the model at its full published width on one CUDA card by default;
 Checkpoint/restart (auto-resume from the latest committed step of
 ``--ckpt-dir``), async checkpointing, loss logging, optional int8 gradient
 compression, as the JAX launcher.  Families whose backward is not ported
-yet (Mamba-2 blocks, MoE, the encoder-decoder) are refused with a
-ValueError before anything is built.  (The JAX launcher's sharded
+yet (MoE, and so jamba's hybrid, and the encoder-decoder) are refused
+with a ValueError before anything is built.  (The JAX launcher's sharded
 execution is not part of the port: it runs on one device.)
 """
 from __future__ import annotations

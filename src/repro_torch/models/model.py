@@ -37,9 +37,10 @@ decoder-only config with ``pos_emb=LEARNED`` runs with no positional
 signal.  A hybrid config without its ``ssm`` block, which cannot build
 its Mamba mixers, is refused as invalid.
 
-Training (``loss``) covers the dense and attention-variant decoders: their
-backward runs the flash attention backward kernel on the card.  A stack
-with Mamba-2 blocks, MoE FFNs, or an encoder-decoder is refused with a
+Training (``loss``) covers the dense and attention-variant decoders and
+Mamba-2 stacks: on the card their backward runs the flash attention and
+SSD-scan backward kernels.  A stack with MoE FFNs (jamba-1.5-large's
+hybrid among them), or an encoder-decoder, is refused with a
 ``ValueError`` naming the missing piece (``check_trainable``).
 """
 from __future__ import annotations
@@ -75,16 +76,11 @@ def check_trainable(cfg: ModelConfig) -> None:
     """Refuse, with a ValueError that names the missing piece, a config
     whose backward the port does not have yet (ROADMAP queue 1).  On the
     card those would train through plain versions, or not at all."""
-    from repro_torch.models.transformer import block_pattern
     if cfg.is_encdec:
         raise ValueError(
             f"{cfg.name}: training an encoder-decoder is not ported yet: "
             f"its batches carry fp32 frame embeddings (training/data.py), "
             f"and the port's encode takes frames in its weights' dtype")
-    if any(d.mixer == "mamba" for d in block_pattern(cfg)):
-        raise ValueError(
-            f"{cfg.name}: training Mamba-2 (SSD) blocks is not ported yet: "
-            f"the SSD scan has no backward kernel")
     if cfg.moe is not None:
         raise ValueError(
             f"{cfg.name}: training MoE blocks is not ported yet: there is "

@@ -917,7 +917,8 @@ def test_reduced_jamba_kernel_path_matches_plain_path(cuda):
     n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
     assert ops.launch_counts() == {
         "flash_attention": n_attn, "flash_attention_bwd": 0,
-        "paged_attention": 16 * n_attn, "ssd_scan": cfg.num_layers - n_attn}
+        "paged_attention": 16 * n_attn, "ssd_scan": cfg.num_layers - n_attn,
+        "ssd_scan_bwd": 0}
     assert SSD.ssd_scan_cuda.variant_launches["wgmma"] == \
         cfg.num_layers - n_attn
     got = torch.stack(got, 1).float()
@@ -961,7 +962,7 @@ def test_reduced_seamless_kernel_path_matches_plain_path(cuda):
     assert ops.launch_counts() == {"flash_attention": E + 2 * L,
                                    "flash_attention_bwd": 0,
                                    "paged_attention": 8 * 2 * L,
-                                   "ssd_scan": 0}
+                                   "ssd_scan": 0, "ssd_scan_bwd": 0}
     assert FA.flash_attention_cuda.noncausal_launches == E + L
     assert {T: n for T, n in PA.paged_attention_cuda.capacity_launches
             .items() if n} == {32: 8 * L, 12: 8 * L}
@@ -1379,6 +1380,133 @@ def test_reduced_gemma2_training_step_kernel_path_matches_plain_path(cuda):
     torch.cuda.synchronize()
     counts = ops.launch_counts()
     assert counts["flash_attention_bwd"] == cfg.num_layers
+    loss_p, _, grads_p = loss_and_grads(plain, params, batch)
+    assert abs(float(loss_k) - float(loss_p)) < 1e-2
+    for (path, a), b in zip(TR.flatten_with_paths(grads_k),
+                            TR.leaves(grads_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos > 0.99, (path, cos)
+
+
+# ------------------------------------------------------- the SSD backward
+# name -> (B, S, H, P, G, N, chunk, initial state and a final state's
+# gradient): chip_smoke.py's shapes, mamba2-780m's training batch first
+SSD_BWD_CASES = {
+    "mamba2-780m training": (4, 2048, 48, 64, 1, 128, 256, False),
+    "mamba2-780m .reduced()": (2, 100, 16, 16, 1, 16, 32, False),
+    "G=2": (2, 300, 8, 64, 2, 128, 64, False),
+    "jamba H=256 one group": (1, 1024, 256, 64, 1, 128, 256, False),
+    "ragged tail": (2, 333, 4, 64, 1, 128, 128, False),
+    "initial state, dfinal": (2, 200, 4, 32, 2, 64, 64, True),
+    "S < chunk": (1, 20, 2, 32, 1, 32, 256, True),
+    "P=N=128": (1, 300, 4, 128, 1, 128, 256, True),
+    "P=128 N=16 G=4": (1, 150, 8, 128, 4, 16, 32, True),
+    "P=16 N=128": (2, 70, 4, 16, 1, 128, 64, False),
+}
+# each gradient's error within this share of its norm: the same fp32 sums
+# in another order; bf16 also rounds dx, dB and dC once.  dA is held to
+# DA_REL_TOL: one sum a head over every row of the batch, of terms that
+# cancel (|dA| is down to a fiftieth of the sum of its terms' magnitudes
+# at these shapes), each itself a cumsum of the cancelling dcum
+SSD_BWD_REL_TOL = {"float32": 1e-4, "bfloat16": 1e-2}
+DA_REL_TOL = 1e-3
+SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
+
+
+def ssd_bwd_tol(name, dtype):
+    return DA_REL_TOL if name == "dA" else SSD_BWD_REL_TOL[dtype]
+
+
+def ssd_bwd_inputs(dev, case, dtype):
+    B, S, H, P, G, N, chunk, init = SSD_BWD_CASES[case]
+    args, st = ssd_inputs(dev, S + P + N, B, S, H, P, G, N, DTYPES[dtype],
+                          init)
+    rng = np.random.default_rng(S + H)
+    dy = on(dev, rng.standard_normal((B, S, H, P)), DTYPES[dtype])
+    dfinal = (on(dev, rng.standard_normal((B, H, P, N)), torch.float32)
+              if init else None)
+    return args, st, dy, dfinal, chunk
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SSD_BWD_CASES))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_bwd_matches_plain(cuda, case, dtype):
+    args, st, dy, dfinal, chunk = ssd_bwd_inputs(cuda, case, dtype)
+    kw = dict(chunk=chunk, initial_state=st)
+    before = dict(SSD.ssd_scan_bwd_cuda.pass_launches)
+    got = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
+    torch.cuda.synchronize()
+    assert SSD.ssd_scan_bwd_cuda.pass_launches == {
+        p: n + 1 for p, n in before.items()}
+    want = SSD.ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
+    for name, g, w in zip(SSD_GRADS, got, want):
+        if w is None:
+            assert g is None, name
+            continue
+        assert g.dtype == w.dtype and g.shape == w.shape, name
+        assert rel_err(g, w) < ssd_bwd_tol(name, dtype), (name,
+                                                          rel_err(g, w))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_bwd_is_deterministic(cuda):
+    args, st, dy, dfinal, chunk = ssd_bwd_inputs(
+        cuda, "initial state, dfinal", "bfloat16")
+    kw = dict(chunk=chunk, initial_state=st)
+    a = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
+    b = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_ssd_scan_fn_runs_both_kernels(cuda):
+    """Under autograd ops.ssd_scan goes through SSDScanFn: one forward
+    launch, one call of the backward (its four passes), the gradients the
+    plain ones; the scan's own wrapper still refuses autograd."""
+    (x, dt, A, Bm, Cm), st, dy, dfinal, chunk = ssd_bwd_inputs(
+        cuda, "initial state, dfinal", "bfloat16")
+    ins = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, st)]
+    ops.reset_launch_counts()
+    y, final = ops.ssd_scan(*ins[:5], chunk=chunk, initial_state=ins[5])
+    got = torch.autograd.grad((y, final), ins, (dy, dfinal))
+    counts = ops.launch_counts()
+    assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
+    assert SSD.ssd_scan_bwd_cuda.pass_launches == dict.fromkeys(
+        SSD.BWD_PASSES, 1)
+    with torch.no_grad():
+        want = SSD.ssd_scan_bwd_plain(*ins[:5], dy, dfinal, chunk=chunk,
+                                      initial_state=ins[5])
+    for name, g, w in zip(SSD_GRADS, got, want):
+        assert rel_err(g, w) < ssd_bwd_tol(name, "bfloat16"), name
+    with pytest.raises(RuntimeError, match="ssd_scan: .*no gradient"):
+        SSD.ssd_scan_cuda(*ins[:5], chunk=chunk)
+
+
+@pytest.mark.cuda
+def test_reduced_mamba2_training_step_kernel_path_matches_plain_path(cuda):
+    """mamba2-780m at smoke width on the card: one loss and gradient
+    through the SSD forward and backward kernels (remat: the forward twice
+    a layer) against the plain path (ssd_chunked under autograd), as the
+    attention models' steps above."""
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.training import make_batch
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = get_config("mamba2-780m").reduced()
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, 2, 200, step=0).items()}
+    ops.reset_launch_counts()
+    loss_k, _, grads_k = loss_and_grads(kernel, params, batch)
+    torch.cuda.synchronize()
+    L = cfg.num_layers
+    assert ops.launch_counts() == {
+        "flash_attention": 0, "flash_attention_bwd": 0,
+        "paged_attention": 0, "ssd_scan": 2 * L, "ssd_scan_bwd": L}
     loss_p, _, grads_p = loss_and_grads(plain, params, batch)
     assert abs(float(loss_k) - float(loss_p)) < 1e-2
     for (path, a), b in zip(TR.flatten_with_paths(grads_k),

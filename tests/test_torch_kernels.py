@@ -337,7 +337,8 @@ def test_ops_dispatch_cpu_goes_to_plain_versions():
     assert torch.equal(out, PA.paged_attention_plain(*targs, scale=0.3))
     assert ops.launch_counts() == {"flash_attention": 0,
                                    "flash_attention_bwd": 0,
-                                   "paged_attention": 0, "ssd_scan": 0}
+                                   "paged_attention": 0, "ssd_scan": 0,
+                                   "ssd_scan_bwd": 0}
 
 
 def test_reset_zeroes_the_counts_by_kind():
