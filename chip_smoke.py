@@ -1130,8 +1130,8 @@ def ssd_bwd_cases():
     of the SSD backward kernel: mamba2-780m's training batch first (the
     kernels line's row), its .reduced() widths, G > 1, jamba-1.5-large's
     256 heads over one group, a ragged tail, S below the chunk, an initial
-    state with a final state's gradient, every width at its edges; then
-    fp32."""
+    state with a final state's gradient, every width at its edges, the
+    64-row tile edges; then fp32."""
     bf16, f32 = torch.bfloat16, torch.float32
     train = (TRAIN_B, TRAIN_S, 48, 64, 1, 128, 256)
     cases = [("mamba2-780m training", train, bf16, False),
@@ -1147,10 +1147,17 @@ def ssd_bwd_cases():
              ("P=N=128", (1, 300, 4, 128, 1, 128, 256), bf16, True),
              ("P=128 N=16 G=4", (1, 150, 8, 128, 4, 16, 32), bf16, True),
              ("P=16 N=128", (2, 70, 4, 16, 1, 128, 64), bf16, False)]
-    return cases + [(label, shape, f32, init)
-                    for label, shape, _, init in cases
-                    if label in ("mamba2-780m training", "ragged tail",
-                                 "initial state and dfinal", "P=N=128")]
+    # the bf16 kernel's 64-row tile edges at mamba2-780m's widths
+    edges = [(f"tile edge S={S} chunk={chunk}", (2, S, 8, 64, 1, 128, chunk),
+              bf16, init)
+             for chunk in (64, 256) for S in (63, 64, 65, 129)
+             for init in (False, True)]
+    return cases + edges + [(label, shape, f32, init)
+                            for label, shape, _, init in cases
+                            if label in ("mamba2-780m training",
+                                         "ragged tail",
+                                         "initial state and dfinal",
+                                         "P=N=128")]
 
 
 def ssd_bwd_inputs(shape, dtype, gen, init: bool):
@@ -1167,8 +1174,9 @@ def ssd_bwd_inputs(shape, dtype, gen, init: bool):
 def check_ssd_bwd(gen):
     """The SSD backward kernel against its plain version at every case,
     from the same inputs and cotangents: each gradient within
-    SSD_BWD_REL_TOL of its norm, the four passes launched once each; then
-    its times at mamba2-780m's training shape, jamba-1.5-large's heads and
+    SSD_BWD_REL_TOL of its norm, the four passes launched once each, bf16
+    on the tensor cores and fp32 on CUDA cores; then its times, and each
+    pass's, at mamba2-780m's training shape, jamba-1.5-large's heads and
     in fp32."""
     from repro_torch.kernels import ssd_scan as SSD
     main_err = 0.0
@@ -1179,12 +1187,18 @@ def check_ssd_bwd(gen):
         name = (f"ssd_scan_bwd {label} x [{B},{S},{H},{P}] G={G} N={N} "
                 f"chunk={chunk} init={init} {str(dt)[6:]}")
         before = dict(SSD.ssd_scan_bwd_cuda.pass_launches)
+        variant = "wgmma" if dt == torch.bfloat16 else "cuda_core"
+        before_variant = dict(SSD.ssd_scan_bwd_cuda.variant_launches)
         got = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
         torch.cuda.synchronize()
         require(all(SSD.ssd_scan_bwd_cuda.pass_launches[p] == before[p] + 1
                     for p in SSD.BWD_PASSES),
                 f"{name}: the passes {SSD.BWD_PASSES} did not each launch "
                 f"once")
+        require(SSD.ssd_scan_bwd_cuda.variant_launches == {
+                    v: n + (v == variant) for v, n in before_variant.items()},
+                f"{name}: ran {SSD.ssd_scan_bwd_cuda.variant_launches} "
+                f"(before {before_variant}), not the {variant} kernels")
         want = SSD.ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
         rels, errs = [], []
         for grad, g, w in zip(SSD_GRADS, got, want):
@@ -1213,9 +1227,12 @@ def check_ssd_bwd(gen):
              torch.float32)):
         r = time_ssd_bwd(SSD, shape, dt, gen)
         r["model"], r["main_path"], r["launches"] = model, False, 0
-        print(f"  ssd_scan_bwd at {r['shape']}: {times_text(r)} "
-              f"(at fp32's CUDA cores: bound {r['bound_fp32_ms']!r} ms)")
         extra.append(r)
+    for r in [t, *extra]:
+        print(f"  ssd_scan_bwd at {r['shape']}: {times_text(r)} "
+              f"(at fp32's CUDA cores: bound {r['bound_fp32_ms']!r} ms); "
+              f"device ms by pass {r['pass_device_ms']} (by kernel "
+              f"{r['kernel_device_ms']})")
     return dict(name="ssd_scan_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
                 replaces="src/repro/models/mamba2.py:79",
@@ -1223,6 +1240,29 @@ def check_ssd_bwd(gen):
                                "model trains Mamba-2 through ssd_chunked, "
                                "which XLA differentiates"),
                 max_abs_err=main_err, **t, models=extra)
+
+
+def kernel_device_ms(call, iters: int):
+    """Device ms of each kernel a call launches, from a torch.profiler
+    trace of ``iters`` calls after one warm-up call, by the kernel's
+    name (``ssd_bwd_rows_i<64, 128>`` as ``ssd_bwd_rows_i``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            call()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CUDA:
+            name = re.sub(r"^(?:void )?(?:\(anonymous namespace\)::)?", "",
+                          e.key).split("<")[0]
+            out[name] = out.get(name, 0.0) + \
+                e.self_device_time_total / 1e3 / iters
+    return out
 
 
 def time_ssd_bwd(SSD, shape, dtype, gen):
@@ -1245,6 +1285,12 @@ def time_ssd_bwd(SSD, shape, dtype, gen):
               + 2 * dt.numel() * 4 + 2 * A.numel() * 4)   # dt/ddt, A/dA
     peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
     bound_ms, bound_by = bound(flops, nbytes, peak)
+    by_kernel = kernel_device_ms(
+        lambda: SSD.ssd_scan_bwd_cuda(*args, dy, **kw), 5)
+    t["kernel_device_ms"] = by_kernel
+    t["pass_device_ms"] = {
+        p: sum(ms for k, ms in by_kernel.items()
+               if k.startswith(f"ssd_bwd_{p}")) for p in SSD.BWD_PASSES}
     return dict(t, bound_ms=bound_ms, bound_by=bound_by,
                 bound_fp32_ms=bound(flops, nbytes, PEAK_FP32_FLOPS)[0],
                 flops=flops, bytes=nbytes,
@@ -2315,7 +2361,7 @@ def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
     flash kernel and every Mamba layer's SSD scan twice a step (the
     forward, and remat's recompute in the backward pass; the scan on the
     tensor cores), each layer's backward kernel once a step in each of its
-    passes, and nothing else."""
+    passes (the SSD backward on the tensor cores), and nothing else."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.models.transformer import block_pattern, num_repeats
@@ -2335,6 +2381,10 @@ def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
         want = {p: layers * steps for p in passes} if layers else {}
         require(kinds[name] == want,
                 f"{what}: {name} passes {kinds[name]}, expected {want}")
+    want = {"wgmma": n_mamba * steps, "cuda_core": 0}
+    require(SSD.ssd_scan_bwd_cuda.variant_launches == want,
+            f"{what}: ssd_scan_bwd variants "
+            f"{SSD.ssd_scan_bwd_cuda.variant_launches}, expected {want}")
     print(f"  {what}: launches {counts}, backward passes "
           f"{kinds['flash_attention_bwd'] or kinds['ssd_scan_bwd']}")
 
@@ -2441,6 +2491,9 @@ def run_train(arch: str, seed: int):
     counts, kinds = launch_counts(), launch_kinds()
     train_launch_counts(cfg, counts, kinds, TRAIN_STEPS,
                         f"train main path, {TRAIN_STEPS} steps")
+    from repro_torch.kernels import ssd_scan as SSD
+    kinds["ssd_scan_bwd variant"] = dict(
+        SSD.ssd_scan_bwd_cuda.variant_launches)
     require(losses[-1] < losses[0] - TRAIN_MIN_DROP,
             f"train: loss {losses[0]!r} -> {losses[-1]!r}, not down by "
             f"{TRAIN_MIN_DROP}")
@@ -2519,9 +2572,11 @@ def count_launches(kernels, launches, by_model, kinds_by_model,
             k["pass_launches"] = {p: sum(kinds_by_model[t][name].get(p, 0)
                                          for t in trains)
                                   for p in sorted(passes)}
-        if name == "ssd_scan":           # the variants the main path ran
+        if name.startswith("ssd_scan"):   # the variants the main path ran
+            key = name if name == "ssd_scan" else f"{name} variant"
             k["variant_launches"] = {v: sum(
-                kinds[name].get(v, 0) for kinds in kinds_by_model.values())
+                kinds.get(key, {}).get(v, 0)
+                for kinds in kinds_by_model.values())
                 for v in ("wgmma", "cuda_core")}
             k["variant"] = "+".join(
                 v for v, n in k["variant_launches"].items() if n)

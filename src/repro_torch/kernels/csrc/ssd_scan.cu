@@ -85,16 +85,6 @@ constexpr float LOG2E = 1.4426950408889634f;
 
 // ------------------------------------------------- bf16: the tensor cores
 
-// An fp32 pair as two bf16 pairs: the high parts, and the low parts of what
-// the high parts leave.  hi + lo keeps about 16 bits of each mantissa.
-__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
-  const float2 hf = __bfloat1622float2(h);
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = pack_bf16(a - hf.x, b - hf.y);
-}
-
 // Step 1 splits the state dim N over blocks of NB columns, for more blocks
 // and less shared memory a block.
 template <int N>
@@ -115,7 +105,7 @@ struct StateSmem {
 // Step 1: one warpgroup per (chunk and NB state columns, head, batch).
 // dS_c[p, n] = sum_j w_j x_j[p] B_j[n] with w_j = exp(cum_last - cum_j)
 // dt_j: A = (w x)^T from registers, split into high and low parts; B the
-// chunk's B rows, exact.
+// chunk's B rows, exact (chunk_state_product, ssd_common.cuh).
 template <int P, int N>
 __global__ void __launch_bounds__(WG)
 ssd_chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -125,7 +115,7 @@ ssd_chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
   constexpr int NB = state_cols<N>(), SPLIT = N / NB;
   using L = StateSmem<P, NB>;
   using BT = typename L::BT;
-  constexpr int XS = L::XS, NT = NB / 8;
+  constexpr int XS = L::XS;
   extern __shared__ __align__(1024) unsigned char smem[];
   unsigned char* Bs = smem;
   bf16* Xs = reinterpret_cast<bf16*>(smem + L::X_OFF);
@@ -133,7 +123,6 @@ ssd_chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
   float* wts = cum + MAX_Q;                                    // [MAX_Q]
 
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane / 4, q = lane % 4;
   const int nc = gridDim.x / SPLIT, c = blockIdx.x / SPLIT;
   const int n0 = (blockIdx.x % SPLIT) * NB, h = blockIdx.y, b = blockIdx.z;
   const int t0 = c * Q, rows = min(Q, S - t0);
@@ -195,57 +184,8 @@ ssd_chunk_state(const bf16* __restrict__ x, const float* __restrict__ dt,
   fence_proxy_async();
   __syncthreads();
 
-  const uint32_t Ba = smem_addr(Bs);
   float* out = states + ((long(b) * nc + c) * H + h) * long(P) * N + n0;
-#pragma unroll
-  for (int m0 = 0; m0 < P; m0 += TILE) {      // P = 128: two row tiles
-    const int p0 = m0 + warp * 16 + g, p1 = p0 + 8;   // this thread's rows
-    float d[NT][4];
-#pragma unroll
-    for (int n = 0; n < NT; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) d[n][e] = 0.f;
-    auto a = [&](int p, int j) {
-      return p < P ? wts[j] * __bfloat162float(Xs[j * XS + p]) : 0.f;
-    };
-    for (int k0 = 0; k0 < kq; k0 += 64) {
-      // A for four k-steps of 16 rows j, as mma.sync A fragments
-      uint32_t ah[4][4], al[4][4];
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const int j = k0 + kk * 16 + 2 * q;
-        split_bf16(a(p0, j), a(p0, j + 1), ah[kk][0], al[kk][0]);
-        split_bf16(a(p1, j), a(p1, j + 1), ah[kk][1], al[kk][1]);
-        split_bf16(a(p0, j + 8), a(p0, j + 9), ah[kk][2], al[kk][2]);
-        split_bf16(a(p1, j + 8), a(p1, j + 9), ah[kk][3], al[kk][3]);
-      }
-      fence_regs(d);
-      fence_regs(ah);
-      fence_regs(al);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) {
-        const uint64_t desc = BT::n_major(Ba, k0 / 16 + kk);
-        wgmma_rs<1>(d, ah[kk], desc, 1);
-        wgmma_rs<1>(d, al[kk], desc, 1);
-      }
-      wgmma_commit();
-      wgmma_wait_all();
-      fence_regs(d);
-      fence_regs(ah);
-      fence_regs(al);
-    }
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      const int col = n * 8 + 2 * q;
-      if (p0 < P)
-        *reinterpret_cast<float2*>(out + long(p0) * N + col) =
-            make_float2(d[n][0], d[n][1]);
-      if (p1 < P)
-        *reinterpret_cast<float2*>(out + long(p1) * N + col) =
-            make_float2(d[n][2], d[n][3]);
-    }
-  }
+  chunk_state_product<P, N, NB, XS>(Xs, wts, smem_addr(Bs), kq, out);
 }
 
 // Step 2: one thread per 4 consecutive (p, n) of one (batch, head).

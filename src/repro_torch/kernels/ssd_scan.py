@@ -13,9 +13,10 @@ decay-masked ``(C Bᵀ ∘ L ∘ dt) x`` — so the CPU tests exercise it, and
 ``kernels.ops.ssd_scan`` picks between the two by the tensors' device.
 
 The backward (training): ``ssd_scan_bwd_cuda`` launches
-``csrc/ssd_scan_bwd.cu`` (fp32 on CUDA cores, four launches), and
-``ssd_scan_bwd_plain`` computes the same gradient by its explicit
-formulas; ``kernels.ops.SSDScanFn`` takes one or the other by device.
+``csrc/ssd_scan_bwd.cu`` (four passes; bf16 runs its products on the
+tensor cores, fp32 on CUDA cores), and ``ssd_scan_bwd_plain`` computes the
+same gradient by its explicit formulas; ``kernels.ops.SSDScanFn`` takes
+one or the other by device.
 """
 from __future__ import annotations
 
@@ -197,10 +198,11 @@ ssd_scan_cuda.variant_launches = {"wgmma": 0, "cuda_core": 0}
 
 # ------------------------------------------------------------ the backward
 
-# the backward's four launches (csrc/ssd_scan_bwd.cu): each chunk's own
+# the backward's four passes (csrc/ssd_scan_bwd.cu): each chunk's own
 # state and its dy C^T term; the states passed forward and their
-# gradients passed back; the rows of every chunk; the cumsum of dcum, dA
-# and the group sums of dB and dC
+# gradients passed back; the rows of every chunk (in bf16 two launches,
+# the rows as i and as j); the cumsum of dcum, dA and the group sums of dB
+# and dC
 BWD_PASSES = ("chunk", "state", "rows", "reduce")
 
 
@@ -326,27 +328,51 @@ def check_bwd(x, Bm) -> None:
                         f"{DTYPES}")
 
 
-def bwd_workspace_floats(B: int, S: int, H: int, P: int, N: int,
-                         chunk: int) -> int:
+def bwd_heads_per_block(H: int, G: int, dtype) -> int:
+    """Heads of a group one rows block of the bf16 backward takes, summing
+    their dB and dC before it writes them (csrc/ssd_scan_bwd.cu's
+    heads_per_block); fp32 takes one."""
+    R = H // G
+    if dtype != torch.bfloat16:
+        return 1
+    return next(hb for hb in (8, 4, 2, 1) if R % hb == 0)
+
+
+def bwd_state_split(P: int, N: int) -> int:
+    """Blocks of the backward's state pass a (batch, head), one float4 of
+    [P, N] a thread (csrc/ssd_scan_bwd.cu's state_split), each writing its
+    part of <G_c, S_c>."""
+    return max(1, P * N // 1024)
+
+
+def bwd_workspace_floats(B: int, S: int, H: int, G: int, P: int, N: int,
+                         chunk: int, dtype) -> int:
     """fp32 elements of the backward kernel's workspace
-    (csrc/ssd_scan_bwd.cu): the states S_{c-1} and their gradients G_c,
-    [B, H, nc, P, N] each; cum and dcum, [B, H, nc, Q] each; the last
-    row's extra term of dcum, [B, H, nc]; the per-head partials of dB and
-    dC, [B, S, H, N] each."""
+    (csrc/ssd_scan_bwd.cu): in bf16 the states S_{c-1} and their gradients
+    G_c as bf16 high and low tiles (as many bytes as [B, H, nc, P, N] fp32
+    each); the chunks' own states and dy C^T terms, [B, H, nc, P, N] each;
+    the partials of dB and dC, [B, S, H / bwd_heads_per_block, N] each;
+    cum and dy . y, [B, H, nc, Q] each; the partials of the last row's
+    extra term of dcum, [B, H, nc, bwd_state_split]."""
     Q = effective_chunk(chunk, S)
     nc = -(-S // Q)
-    return B * H * nc * (2 * P * N + 2 * Q + 1) + 2 * B * S * H * N
+    tiles = 2 if dtype == torch.bfloat16 else 0
+    parts = H // bwd_heads_per_block(H, G, dtype)
+    return (B * H * nc * ((2 + tiles) * P * N + 2 * Q
+                          + bwd_state_split(P, N))
+            + 2 * B * S * parts * N)
 
 
 def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
                       initial_state=None):
-    """Launch ``csrc/ssd_scan_bwd.cu`` (four launches, fp32 on CUDA cores:
-    BWD_PASSES) on the current stream; returns what
-    ``ssd_scan_bwd_plain`` returns, and raises on anything the kernel does
-    not take.  Its workspace comes from the caching allocator for this
-    call alone (autograd runs a backward on its own thread).  Counts its
-    calls in ``.launches`` and each pass's launches in
-    ``.pass_launches``."""
+    """Launch ``csrc/ssd_scan_bwd.cu`` (its four passes, BWD_PASSES) on
+    the current stream; returns what ``ssd_scan_bwd_plain`` returns, and
+    raises on anything the kernel does not take.  Its workspace comes from
+    the caching allocator for this call alone (autograd runs a backward on
+    its own thread).  Counts its calls in ``.launches``, each pass in
+    ``.pass_launches``, and the calls by the kernels that ran in
+    ``.variant_launches``: "wgmma" (bf16, the tensor cores) or
+    "cuda_core" (fp32)."""
     build.refuse_grad("ssd_scan_bwd", x, dt, A, Bm, Cm, dy, dfinal,
                       initial_state)
     check_bwd(x, Bm)
@@ -373,11 +399,11 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
     dinit = (None if initial_state is None else
              torch.empty((Bsz, H, P, N), dtype=torch.float32,
                          device=x.device))
-    ws = torch.empty(bwd_workspace_floats(Bsz, S, H, P, N, Q),
+    ws = torch.empty(bwd_workspace_floats(Bsz, S, H, G, P, N, Q, x.dtype),
                      dtype=torch.float32, device=x.device)
     lib = build.load()
-    fn = (lib.ssd_scan_bwd_bf16 if x.dtype == torch.bfloat16
-          else lib.ssd_scan_bwd_f32)
+    bf16 = x.dtype == torch.bfloat16
+    fn = lib.ssd_scan_bwd_bf16 if bf16 else lib.ssd_scan_bwd_f32
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -393,8 +419,11 @@ def ssd_scan_bwd_cuda(x, dt, A, Bm, Cm, dy, dfinal=None, *, chunk: int,
         ssd_scan_bwd_cuda.launches += 1
         for name in BWD_PASSES:
             ssd_scan_bwd_cuda.pass_launches[name] += 1
+        ssd_scan_bwd_cuda.variant_launches[
+            "wgmma" if bf16 else "cuda_core"] += 1
     return dx, ddt, dA, dB, dC, dinit
 
 
 ssd_scan_bwd_cuda.launches = 0
 ssd_scan_bwd_cuda.pass_launches = dict.fromkeys(BWD_PASSES, 0)
+ssd_scan_bwd_cuda.variant_launches = {"wgmma": 0, "cuda_core": 0}

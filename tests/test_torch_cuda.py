@@ -1434,12 +1434,23 @@ def ssd_bwd_inputs(dev, case, dtype):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_ssd_scan_bwd_matches_plain(cuda, case, dtype):
     args, st, dy, dfinal, chunk = ssd_bwd_inputs(cuda, case, dtype)
+    check_ssd_bwd(args, st, dy, dfinal, chunk, dtype)
+
+
+def check_ssd_bwd(args, st, dy, dfinal, chunk, dtype):
+    """One call of the backward kernel against the plain version: each
+    pass launched once, bf16 on the tensor cores ("wgmma") and fp32 on
+    CUDA cores, each gradient within its share of its norm."""
     kw = dict(chunk=chunk, initial_state=st)
+    variant = "wgmma" if dtype == "bfloat16" else "cuda_core"
     before = dict(SSD.ssd_scan_bwd_cuda.pass_launches)
+    before_variant = dict(SSD.ssd_scan_bwd_cuda.variant_launches)
     got = SSD.ssd_scan_bwd_cuda(*args, dy, dfinal, **kw)
     torch.cuda.synchronize()
     assert SSD.ssd_scan_bwd_cuda.pass_launches == {
         p: n + 1 for p, n in before.items()}
+    assert SSD.ssd_scan_bwd_cuda.variant_launches == {
+        k: n + (k == variant) for k, n in before_variant.items()}
     want = SSD.ssd_scan_bwd_plain(*args, dy, dfinal, **kw)
     for name, g, w in zip(SSD_GRADS, got, want):
         if w is None:
@@ -1448,6 +1459,25 @@ def test_ssd_scan_bwd_matches_plain(cuda, case, dtype):
         assert g.dtype == w.dtype and g.shape == w.shape, name
         assert rel_err(g, w) < ssd_bwd_tol(name, dtype), (name,
                                                           rel_err(g, w))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("init", [False, True])
+@pytest.mark.parametrize("S,chunk", [
+    (63, 64), (64, 64), (65, 64), (129, 64),
+    (63, 256), (64, 256), (65, 256), (129, 256)])
+def test_ssd_scan_bwd_tile_edges(cuda, S, chunk, init):
+    """mamba2-780m's widths (P 64, N 128, one group) at the edges of the
+    bf16 kernel's 64-row tiles, with and without an initial state and a
+    final state's gradient."""
+    B, H, P, G, N = 2, 8, 64, 1, 128
+    args, st = ssd_inputs(cuda, S + P + N, B, S, H, P, G, N, torch.bfloat16,
+                          init)
+    rng = np.random.default_rng(S + H)
+    dy = on(cuda, rng.standard_normal((B, S, H, P)), torch.bfloat16)
+    dfinal = (on(cuda, rng.standard_normal((B, H, P, N)), torch.float32)
+              if init else None)
+    check_ssd_bwd(args, st, dy, dfinal, chunk, "bfloat16")
 
 
 @pytest.mark.cuda
@@ -1463,8 +1493,9 @@ def test_ssd_scan_bwd_is_deterministic(cuda):
 @pytest.mark.cuda
 def test_ssd_scan_fn_runs_both_kernels(cuda):
     """Under autograd ops.ssd_scan goes through SSDScanFn: one forward
-    launch, one call of the backward (its four passes), the gradients the
-    plain ones; the scan's own wrapper still refuses autograd."""
+    launch, one call of the backward (its four passes, on the tensor
+    cores), the gradients the plain ones; the scan's own wrapper still
+    refuses autograd."""
     (x, dt, A, Bm, Cm), st, dy, dfinal, chunk = ssd_bwd_inputs(
         cuda, "initial state, dfinal", "bfloat16")
     ins = [t.requires_grad_() for t in (x, dt, A, Bm, Cm, st)]
@@ -1475,6 +1506,8 @@ def test_ssd_scan_fn_runs_both_kernels(cuda):
     assert counts["ssd_scan"] == 1 and counts["ssd_scan_bwd"] == 1
     assert SSD.ssd_scan_bwd_cuda.pass_launches == dict.fromkeys(
         SSD.BWD_PASSES, 1)
+    assert SSD.ssd_scan_bwd_cuda.variant_launches == {"wgmma": 1,
+                                                      "cuda_core": 0}
     with torch.no_grad():
         want = SSD.ssd_scan_bwd_plain(*ins[:5], dy, dfinal, chunk=chunk,
                                       initial_state=ins[5])

@@ -22,7 +22,7 @@ once), as ``tests/test_torch_flash_bwd.py``.  The kernel itself is held
 against the plain version on the card (``tests/test_torch_cuda.py``).
 
 Also here: the CPU-side refusals of the backward's wrapper and of
-``check_bwd``.
+``check_bwd``, and the bf16 kernel's operand rounding, emulated.
 """
 import functools
 
@@ -229,3 +229,103 @@ def test_backward_refuses_half():
     with pytest.raises(TypeError, match="ssd_scan_bwd: x is torch.float16"):
         SSD.check_bwd(torch.zeros(1, 8, 2, 16, dtype=torch.float16),
                       torch.zeros(1, 8, 1, 16, dtype=torch.float16))
+
+
+@pytest.mark.parametrize("H,G,dtype,heads", [
+    (48, 1, torch.bfloat16, 8),      # mamba2-780m
+    (256, 1, torch.bfloat16, 8),     # jamba-1.5-large
+    (8, 2, torch.bfloat16, 4),
+    (4, 2, torch.bfloat16, 2),
+    (6, 2, torch.bfloat16, 1),
+    (48, 1, torch.float32, 1),       # fp32: one head a rows block
+])
+def test_backward_workspace_follows_the_kernels_rules(H, G, dtype, heads):
+    """The wrapper sizes the workspace by csrc/ssd_scan_bwd.cu's rules: a
+    bf16 rows block sums dB and dC over the most heads of its group, up
+    to 8, that divide the group; fp32 writes one partial a head; the
+    state pass writes one partial of <G_c, S_c> a 1024 values of [P, N];
+    bf16 adds the states' high and low tiles."""
+    assert SSD.bwd_heads_per_block(H, G, dtype) == heads
+    B, S, P, N, chunk = 2, 300, 64, 128, 128
+    slots = B * H * 3                # 3 chunks of at most 128 rows
+    tiles = 2 * slots * P * N if dtype == torch.bfloat16 else 0
+    assert SSD.bwd_state_split(P, N) == 8
+    assert SSD.bwd_workspace_floats(B, S, H, G, P, N, chunk, dtype) == (
+        tiles + 2 * slots * P * N + 2 * B * S * (H // heads) * N
+        + 2 * slots * chunk + slots * 8)
+
+
+def test_reset_zeroes_the_backward_variant_counts():
+    SSD.ssd_scan_bwd_cuda.variant_launches["wgmma"] = 3
+    ops.reset_launch_counts()
+    assert SSD.ssd_scan_bwd_cuda.variant_launches == {"wgmma": 0,
+                                                      "cuda_core": 0}
+
+
+# ------------------------------------------- the bf16 kernel's rounding
+def split_bf16(t):
+    """An fp32 operand as the bf16 kernel's two operands: the high part
+    and the low part of what it leaves, each back in fp32.  A bf16 value
+    splits into itself and zero."""
+    hi = t.to(torch.bfloat16).float()
+    return [hi, (t - hi).to(torch.bfloat16).float()]
+
+
+# the einsums of ssd_scan_bwd_plain that the kernel does in fp32 and not as
+# products on the tensor cores: the row scales of the state terms
+ROW_SCALES = ("bcjgr,bcjgrn->bcjgn", "bcigr,bcigrn->bcign")
+
+
+@pytest.mark.parametrize("B,S,H,P,G,N,chunk", [
+    (2, 100, 16, 16, 1, 16, 32),       # mamba2-780m .reduced()
+    (1, 512, 48, 64, 1, 128, 256),     # mamba2-780m's heads at full width
+], ids=["reduced", "full-width-heads"])
+def test_backward_operand_rounding_inside_the_card_tolerance(
+        monkeypatch, B, S, H, P, G, N, chunk):
+    """The bf16 backward kernel takes x, B, C and dy exactly as they
+    arrive and splits every other operand of a product (the decayed
+    weights, the states S_{c-1} and their gradients G_c, W) into a bf16
+    high and low part.  Emulated here by running ssd_scan_bwd_plain with
+    each product's first operand taken as those parts (C in C Bᵀ and dy in
+    dy xᵀ split into themselves and zero): every gradient stays inside the
+    card's tolerance against the fp32 plain version, 1e-2 of its norm and
+    dA 1e-3 (chip_smoke.py, tests/test_torch_cuda.py).  Prints the shares
+    of each tolerance, also with the low parts dropped (not asserted: the
+    kernel forms dcum as dy·y − dt x·br, which these plain formulas do not,
+    and on the card the weights' high parts alone left dA far outside its
+    bound)."""
+    rng = np.random.default_rng(S + H + P + N)
+    bf = torch.bfloat16
+
+    def t(a, dtype=torch.float32):
+        return torch.from_numpy(a.astype(np.float32)).to(dtype)
+    x = t(rng.standard_normal((B, S, H, P)), bf)
+    dt = t(np.logaddexp(0.0, rng.standard_normal((B, S, H))))
+    A = t(-np.exp(rng.standard_normal(H) * 0.3))
+    Bm = t(rng.standard_normal((B, S, G, N)) * 0.5, bf)
+    Cm = t(rng.standard_normal((B, S, G, N)) * 0.5, bf)
+    st = t(rng.standard_normal((B, H, P, N)))
+    dy = t(rng.standard_normal((B, S, H, P)), bf)
+    dfinal = t(rng.standard_normal((B, H, P, N)))
+    args = (x, dt, A, Bm, Cm, dy, dfinal)
+    kw = dict(chunk=chunk, initial_state=st)
+    want = SSD.ssd_scan_bwd_plain(*args, **kw)
+    einsum = torch.einsum
+    shares = {}
+    for name, split in [("hi+lo", split_bf16),
+                        ("hi only", lambda a: split_bf16(a)[:1])]:
+        def split_einsum(eq, a, b, split=split):
+            if eq in ROW_SCALES:
+                return einsum(eq, a, b)
+            return sum(einsum(eq, part, b) for part in split(a))
+        with monkeypatch.context() as m:
+            m.setattr(torch, "einsum", split_einsum)
+            got = SSD.ssd_scan_bwd_plain(*args, **kw)
+        shares[name] = {
+            grad: rel_err(g, w) / (1e-3 if grad == "dA" else 1e-2)
+            for grad, g, w in zip(GRADS, got, want)}
+    print(f"SSD backward operand rounding [{B},{S},{H},{P}] N={N} "
+          f"chunk={chunk}, share of the card's tolerance: " + "; ".join(
+              f"{k}: " + ", ".join(f"{g} {v:.3g}" for g, v in m.items())
+              for k, m in shares.items()))
+    assert max(shares["hi+lo"].values()) < 1, shares
