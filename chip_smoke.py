@@ -19,7 +19,10 @@ fallback):
             2e-2 (bf16) or 2e-5 (fp32) of its norm, after the forward's
             lse is held against torch.logsumexp of the plain scores;
             timed at olmo-1b's, gemma2-2b's and nemotron-4-340b's heads
-            and in fp32; its library call is SDPA's backward, or under a
+            and in fp32, and at the training shapes of mixtral-8x7b
+            (G = 4) and seamless-m4t-medium (fp32 D = 64 not causal, bf16
+            D = 64 causal), the forward too; its library call is SDPA's
+            backward, or under a
             softcap flex_attention's; and the SSD scan's backward: at
             mamba2-780m's training shape, x [4,2048,48,64] bf16, its
             .reduced() widths, G = 2, jamba-1.5-large's 256 heads over
@@ -110,25 +113,31 @@ frame embeddings from --seed.
             logits against the teacher-forced forward over the generated
             sequence.
 Then training, olmo-1b (1,176,764,416 parameters), gemma2-2b
-(2,614,341,888: head_dim 256, G = 2, an attention softcap of 50) and
-mamba2-780m (780,148,992: 48 SSD layers), each at full published width
-and depth, random weights from --seed, batches of 4 x 2048 tokens from
-the port's make_batch, AdamW, remat as the config sets it:
-6. train    one loss and gradient on the kernel path against the plain
-            path (blocked_attention or ssd_chunked under autograd) from
-            the same parameters (mamba2-780m's at 4 of its 48 layers,
-            TRAIN_CHECK_LAYERS: past that bf16 rounding sets its
-            gradient on either path): the loss within 1e-2, every
-            gradient's cosine at least 0.99, the global norms within
-            3e-2; then 15 steps of the launcher's train step at lr 1e-3,
-            warmup 3, total 40 (the schedule and gate of
+(2,614,341,888: head_dim 256, G = 2, an attention softcap of 50),
+mamba2-780m (780,148,992: 48 SSD layers), mixtral-8x7b at full layer
+width cut to 2 of its 32 layers (3,164,688,384: 8 experts top-2, routed
+with capacity through the sorted dispatch; TRAIN_CUT) and
+seamless-m4t-medium (681,912,320: its encoder in fp32 on make_batch's
+fp32 frames, its decoder in bf16), random weights from --seed, batches
+of 4 x 2048 tokens from the port's make_batch, AdamW, remat as the
+config sets it:
+6. train    one loss and gradient on the kernel path, twice, which must
+            agree bit for bit, then against the plain path
+            (blocked_attention, ssd_chunked or the one-hot MoE dispatch
+            under autograd) from the same parameters (mamba2-780m's at 4
+            of its 48 layers, TRAIN_CHECK_LAYERS: past that bf16
+            rounding sets its gradient on either path): the loss within
+            1e-2, every gradient's cosine at least 0.99, the global
+            norms within 3e-2; then 15 steps of the launcher's train step
+            at lr 1e-3, warmup 3, total 40 (the schedule and gate of
             tests/test_training.py:17-31: the loss down by more than
             0.5), the launch counters reset just before and read just
             after, by mixer: the forward kernel twice a layer a step (the
             forward and remat's recompute), the backward kernel's passes
-            once a layer a step, nothing else; each step on the host
-            clock, peak memory, tokens/s and model-FLOPs utilisation,
-            then one step traced.
+            once a layer a step, nothing else, flash by window and its
+            launches not causal (the encoder's and the cross-attention's)
+            apart; each step on the host clock, peak memory, tokens/s and
+            model-FLOPs utilisation, then one step traced.
 7. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -260,7 +269,26 @@ SSD_GRADS = ("dx", "ddt", "dA", "dB", "dC", "dinit")
 # init's.
 TRAIN_ARCH = "olmo-1b"        # its shapes are the backward's main row
 TRAIN_PARAMS = {"olmo-1b": 1_176_764_416, "gemma2-2b": 2_614_341_888,
-                "mamba2-780m": 780_148_992}
+                "mamba2-780m": 780_148_992, "mixtral-8x7b": 3_164_688_384,
+                ENCDEC: ENCDEC_PARAMS}
+# trained at full layer width, cut in depth: training holds 12 bytes a
+# parameter (bf16 weights, fp32 moments) and bf16 gradients besides, so
+# mixtral-8x7b's 46.7 B would need 560 GB; 2 of its 32 layers and the
+# embeddings hold 3.16 B, 38.0 GB of state, plus 6.3 GB of gradients and
+# AdamW's fp32 temporaries for the stacked 940 M-element w_up (3.8 GB
+# each); 3 layers would hold 55 GB of state before any activation
+TRAIN_CUT = {"mixtral-8x7b": dict(num_layers=2)}
+# flash at the training paths added last, at batch 4 x 2048: (model, use,
+# H, KVH, D, dtype, causal, window).  mixtral-8x7b's window of 4096 does
+# not bind at 2048 positions; seamless-m4t-medium's encoder runs in fp32
+# on make_batch's fp32 frames, and its cross-attention, q widened to fp32,
+# over the encoder's 2048 fp32 K/V, both not causal; its decoder in bf16
+TRAIN_FLASH = (("mixtral-8x7b training", "attention", 32, 8, 128,
+                torch.bfloat16, True, 4096),
+               (f"{ENCDEC} training", "encoder and cross-attention", 16, 16,
+                64, torch.float32, False, 0),
+               (f"{ENCDEC} training", "decoder self-attention", 16, 16, 64,
+                torch.bfloat16, True, 0))
 TRAIN_B, TRAIN_S = 4, 2048
 TRAIN_STEPS = 15
 TRAIN_OPT = dict(lr=1e-3, warmup_steps=3, total_steps=40)
@@ -562,6 +590,11 @@ def flash_cases(prompt_lens, models, encdec):
                   TRAIN_S, 16, 16, 128, torch.bfloat16,
                   dict(causal=True, scale=128 ** -0.5, model=train,
                        timed=(train, 0))))
+    for model, use, H, KVH, D, dt, causal, window in TRAIN_FLASH:
+        cases.append((f"{model} {use} q/k/v [{TRAIN_B},{TRAIN_S}]", TRAIN_B,
+                      TRAIN_S, TRAIN_S, H, KVH, D, dt,
+                      dict(causal=causal, scale=D ** -0.5, window=window,
+                           model=model, timed=(model, use))))
     H, KVH, D = encdec.num_heads, encdec.num_kv_heads, encdec.head_dim
     for use, B, S, T, causal, _ in ENCDEC_FLASH:
         for dt in (torch.float32, torch.bfloat16):
@@ -650,6 +683,20 @@ def check_flash(prompt_lens, models, encdec, gen):
                   f"(training's forward)")
     print(f"  flash_attention at {t['shape']}: {times_text(t)}")
     extra.append(t)
+    # the training paths added last: mixtral-8x7b's heads, seamless-m4t-
+    # medium's encoder and cross-attention (fp32) and decoder (bf16); the
+    # encoder-decoder's rows take their launches by causality (main)
+    for model, use, H, KVH, D, dt, causal, window in TRAIN_FLASH:
+        t = time_flash(FA, TRAIN_S, gen, H=H, KVH=KVH, D=D, B=TRAIN_B,
+                       window=window, causal=causal, dtype=dt)
+        t["model"], t["use"], t["window"] = model, use, window
+        t["causal"], t["max_abs_err"] = causal, errs[model, use]
+        t["shape"] = (f"{use}: q [{TRAIN_B},{TRAIN_S},{H},{D}], k/v "
+                      f"[{TRAIN_B},{TRAIN_S},{KVH},{D}] {str(dt)[6:]} "
+                      f"causal={causal}, window {window} (training)")
+        print(f"  flash_attention at {t['shape']}: {times_text(t)}")
+        print_beside("flash_attention", t)
+        extra.append(t)
     S = max(prompt_lens)
     t = time_flash(FA, S, gen)
     return dict(name="flash_attention", route="cuda",
@@ -708,25 +755,26 @@ def flex_call(q, k, v, want, *, scale: float, softcap: float, mask_mod, B):
 
 
 def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
-               softcap=0.0, B=1, T=None, causal=True):
+               softcap=0.0, B=1, T=None, causal=True, dtype=torch.bfloat16):
     """Kernel, plain and library times at q [B, S, H, D], k/v [B, T, KVH,
-    D] bf16 (T = S unless given), causal or not, beside the card's bound
-    for the (q, k) pairs the band holds (S T of them a sequence when not
-    causal).  The library calls (kernel_times picks the fastest): SDPA (a
-    window as a boolean mask, no mask when not causal, GQA by
-    enable_gqa), and under a window or a softcap flex_attention (the
-    window as a block mask, the cap as its score_mod).  SDPA has no
+    D] in ``dtype`` (T = S unless given), causal or not, beside the card's
+    bound for the (q, k) pairs the band holds (S T of them a sequence when
+    not causal; fp32 at fp32's peak).  The library calls (kernel_times
+    picks the fastest): SDPA (a window that binds as a boolean mask, no
+    mask when not causal, GQA by enable_gqa), and under a binding window
+    or a softcap flex_attention (the window as a block mask, the cap as
+    its score_mod).  SDPA has no
     softcap: under one it is timed apart (``sdpa_without_softcap_*``, a
     different function)."""
     T = S if T is None else T
-    q = torch.randn(B, S, H, D, generator=gen, device="cuda").bfloat16()
+    q = torch.randn(B, S, H, D, generator=gen, device="cuda").to(dtype)
     k, v = (torch.randn(B, T, KVH, D, generator=gen, device="cuda")
-            .bfloat16() for _ in range(2))
+            .to(dtype) for _ in range(2))
     kw = dict(scale=D ** -0.5, window=window, softcap=softcap, causal=causal)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     want = FA.flash_attention_plain(q, k, v, **kw)
     mask = None
-    if window:
+    if window and window < S:
         pos = torch.arange(S, device="cuda")
         mask = ((pos[None] <= pos[:, None])
                 & (pos[None] > pos[:, None] - window))
@@ -739,7 +787,7 @@ def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
     library = {}
     if not softcap and same_function("sdpa", sdpa().transpose(1, 2), want):
         library["sdpa"] = sdpa
-    if softcap or window:
+    if softcap or mask is not None:
         if window:
             def mask_mod(b, h, q_idx, kv_idx):
                 return (q_idx >= kv_idx) & (q_idx - kv_idx < window)
@@ -764,7 +812,9 @@ def time_flash(FA, S: int, gen, H=16, KVH=16, D=128, window=0,
         pairs = S * (S + 1) // 2                    # causal, S = T
     flops = 4.0 * H * D * B * pairs
     nbytes = 2 * (q.numel() + k.numel()) * q.element_size()  # q, k, v, out
-    bound_ms, bound_by = bound(flops, nbytes)
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS
+                               if dtype == torch.bfloat16
+                               else PEAK_FP32_FLOPS)
     return dict(t, bound_ms=bound_ms, bound_by=bound_by)
 
 
@@ -1308,7 +1358,7 @@ def flash_bwd_cases():
     dtypes, nemotron-4-340b's heads (96/8 at D = 192) and gemma2-2b's (8/4
     at D = 256, its softcap of 50 binding, with and without a window of
     1024) at 2048 tokens, a kv_len below T, and the 64-row edges at
-    D = 256."""
+    D = 256; the training shapes of TRAIN_FLASH sit before nemotron's."""
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [(f"{TRAIN_ARCH} training", TRAIN_B, TRAIN_S, 16, 16, 128, bf16,
               {}),
@@ -1327,6 +1377,9 @@ def flash_bwd_cases():
                    dict(causal=False))]
         cases += [(f"edge S={S}", 1, S, 4, 2, 128, dt, {})
                   for S in (2, 63, 64, 65, 129)]
+    cases += [(f"{model} {use}", TRAIN_B, TRAIN_S, H, KVH, D, dt,
+               dict(causal=causal, window=window))
+              for model, use, H, KVH, D, dt, causal, window in TRAIN_FLASH]
     cases += [("nemotron-4-340b heads, causal", 1, TRAIN_S, 96, 8, 192, bf16,
                {})]
     for window in (0, 1024):
@@ -1448,6 +1501,15 @@ def check_flash_bwd(gen):
         print(f"  flash_attention_bwd at {r['shape']}: {times_text(r)}")
         print_beside("flash_attention_bwd", r)
         extra.append(r)
+    # the training paths added last (the encoder-decoder's rows take their
+    # launches by causality in main)
+    for model, use, H, KVH, D, dt, causal, window in TRAIN_FLASH:
+        r = time_flash_bwd(FA, gen, TRAIN_B, H, KVH, D, dtype=dt,
+                           causal=causal, window=window)
+        r["model"], r["use"], r["causal"] = model, use, causal
+        print(f"  flash_attention_bwd at {r['shape']}: {times_text(r)}")
+        print_beside("flash_attention_bwd", r)
+        extra.append(r)
     return dict(name="flash_attention_bwd", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                 replaces="src/repro/models/layers.py:170",
@@ -1508,17 +1570,21 @@ def library_backward(what: str, call, want):
 
 
 def time_flash_bwd(FA, gen, B, H, KVH, D, softcap=0.0,
-                   dtype=torch.bfloat16):
+                   dtype=torch.bfloat16, causal=True, window=0):
     """Kernel, plain and library times of the backward at q/dO
-    [B, 2048, H, D], k/v [B, 2048, KVH, D], causal, beside the card's
-    bound: five products of 2 D operations a (q, k) pair and head; q, k,
+    [B, 2048, H, D], k/v [B, 2048, KVH, D], causal or not, under a window
+    (one of 2048 or more binds nowhere), beside the card's bound (fp32 at
+    fp32's peak): five products of 2 D operations a (q, k) pair and head; q, k,
     v, o, dO and lse read once, dq, dk, dv written once.  The library call
     (``torch.autograd.grad`` through one forward, kept with retain_graph,
     held against the plain version first) is SDPA's backward, or under a
     softcap flex_attention's with the cap as its score_mod; SDPA's
     backward without the cap (a different function) stands beside it."""
     S = TRAIN_S
-    kw = dict(causal=True, scale=D ** -0.5, softcap=softcap)
+    if window and window < S:
+        raise ValueError("time_flash_bwd: SDPA's backward is timed without "
+                         "a window mask; a window must not bind")
+    kw = dict(causal=causal, scale=D ** -0.5, softcap=softcap, window=window)
     q, dout = (torch.randn(B, S, H, D, generator=gen, device="cuda")
                .to(dtype) for _ in range(2))
     k, v = (torch.randn(B, S, KVH, D, generator=gen, device="cuda")
@@ -1527,7 +1593,7 @@ def time_flash_bwd(FA, gen, B, H, KVH, D, softcap=0.0,
     want = FA.flash_attention_bwd_plain(q, k, v, out, lse, dout, **kw)
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
                   for t in (q, k, v))
-    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+    o_sdpa = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                             scale=kw["scale"],
                                             enable_gqa=KVH != H)
     dout_t = dout.transpose(1, 2)
@@ -1551,7 +1617,7 @@ def time_flash_bwd(FA, gen, B, H, KVH, D, softcap=0.0,
     if softcap:
         t["sdpa_without_softcap_ms"] = time_ms(sdpa_backward, 10)
         t["sdpa_without_softcap_device_ms"] = time_held(sdpa_backward, 10)[0]
-    pairs = S * (S + 1) // 2
+    pairs = S * (S + 1) // 2 if causal else S * S
     flops = 10.0 * H * D * B * pairs
     # q, o, dO, dq and k, v, dk, dv, once each, and lse
     nbytes = 4 * (q.numel() + k.numel()) * q.element_size() + lse.numel() * 4
@@ -1560,7 +1626,9 @@ def time_flash_bwd(FA, gen, B, H, KVH, D, softcap=0.0,
                                else PEAK_FP32_FLOPS)
     return dict(t, bound_ms=bound_ms, bound_by=bound_by,
                 shape=(f"q/dO [{B},{S},{H},{D}], k/v [{B},{S},{KVH},{D}] "
-                       f"{str(dtype)[6:]} causal"
+                       f"{str(dtype)[6:]} " + ("causal" if causal else
+                                               "not causal")
+                       + (f", window {window}" if window else "")
                        + (f", softcap {softcap:g}" if softcap else "")))
 
 
@@ -2351,9 +2419,43 @@ def run_sanitized(cfg, params, prompts, max_len, want_tokens) -> None:
 # ----------------------------------------------------------------- training
 
 def train_batch(cfg, step: int, seed: int):
+    """make_batch's batch on the card; the encoder-decoder's target tokens
+    from the synthetic LM that make_batch gives a decoder (SyntheticLM at
+    the same seed and step), beside make_batch's fp32 frames.  make_batch
+    draws an encoder-decoder's targets uniformly over the vocab: their
+    least loss is ln 256,206 = 12.454, 0.50 under seamless-m4t-medium's
+    first step (12.955), so no trainer could take them down by
+    TRAIN_MIN_DROP (15 steps took them to 12.930 on the card)."""
     from repro_torch.training import make_batch
-    return {k: torch.from_numpy(v).cuda() for k, v in
-            make_batch(cfg, TRAIN_B, TRAIN_S, step=step, seed=seed).items()}
+    from repro_torch.training.data import DataConfig, SyntheticLM
+    batch = make_batch(cfg, TRAIN_B, TRAIN_S, step=step, seed=seed)
+    if cfg.is_encdec:
+        batch["tgt_tokens"] = SyntheticLM(DataConfig(
+            TRAIN_B, TRAIN_S, cfg.vocab_size, seed)).batch_at(step)["tokens"]
+    return {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+
+
+def train_attention(cfg):
+    """(causal, not causal): the attention layers of one training pass.
+    A decoder's attention blocks are causal; the encoder-decoder's decoder
+    self-attention is, its encoder's and its cross-attention's are not."""
+    if cfg.is_encdec:
+        return cfg.num_layers, cfg.encoder_layers + cfg.num_layers
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    return num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg)), 0
+
+
+def train_windows(cfg):
+    """A training pass's attention layers by window, as the forward
+    wrapper counts its launches."""
+    from repro_torch.models.transformer import block_pattern, num_repeats
+    if cfg.is_encdec:
+        return {0: sum(train_attention(cfg))}
+    out = {}
+    for d in block_pattern(cfg):
+        if d.is_attn:
+            out[d.window] = out.get(d.window, 0) + num_repeats(cfg)
+    return out
 
 
 def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
@@ -2361,17 +2463,28 @@ def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
     flash kernel and every Mamba layer's SSD scan twice a step (the
     forward, and remat's recompute in the backward pass; the scan on the
     tensor cores), each layer's backward kernel once a step in each of its
-    passes (the SSD backward on the tensor cores), and nothing else."""
+    passes (the SSD backward on the tensor cores), and nothing else; flash
+    by window, and its launches and its backward's calls not causal (the
+    encoder-decoder's encoder and cross-attention) apart."""
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import ssd_scan as SSD
-    from repro_torch.models.transformer import block_pattern, num_repeats
-    n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
-    n_mamba = cfg.num_layers - n_attn
+    causal, noncausal = train_attention(cfg)
+    n_attn = causal + noncausal
+    n_mamba = 0 if cfg.is_encdec else cfg.num_layers - n_attn
     want = {"flash_attention": 2 * n_attn * steps,
             "flash_attention_bwd": n_attn * steps,
             "paged_attention": 0, "ssd_scan": 2 * n_mamba * steps,
             "ssd_scan_bwd": n_mamba * steps}
     require(counts == want, f"{what}: launches {counts}, expected {want}")
+    want = {w: 2 * n * steps for w, n in train_windows(cfg).items()}
+    require(kinds["flash_attention"] == want,
+            f"{what}: flash_attention by window {kinds['flash_attention']}, "
+            f"expected {want}")
+    got = (FA.flash_attention_cuda.noncausal_launches,
+           FA.flash_attention_bwd_cuda.noncausal_launches)
+    require(got == (2 * noncausal * steps, noncausal * steps),
+            f"{what}: flash_attention and its backward not causal {got}, "
+            f"expected {(2 * noncausal * steps, noncausal * steps)}")
     require(kinds["ssd_scan"] == ({"wgmma": counts["ssd_scan"]}
                                   if n_mamba else {}),
             f"{what}: ssd_scan variants {kinds['ssd_scan']}")
@@ -2385,26 +2498,41 @@ def train_launch_counts(cfg, counts, kinds, steps: int, what: str) -> None:
     require(SSD.ssd_scan_bwd_cuda.variant_launches == want,
             f"{what}: ssd_scan_bwd variants "
             f"{SSD.ssd_scan_bwd_cuda.variant_launches}, expected {want}")
-    print(f"  {what}: launches {counts}, backward passes "
+    print(f"  {what}: launches {counts}, flash by window "
+          f"{kinds['flash_attention']}, not causal {got[0]} forward and "
+          f"{got[1]} backward, backward passes "
           f"{kinds['flash_attention_bwd'] or kinds['ssd_scan_bwd']}")
 
 
 def check_train_step(cfg, params, seed: int) -> None:
     """One loss and gradient of the first batch on the kernel path (the
-    flash or SSD forward and backward kernels, remat) against the plain
-    path (blocked_attention or ssd_chunked under autograd), from the same
-    parameters."""
+    flash or SSD forward and backward kernels, the sorted MoE dispatch,
+    remat), twice: the two must agree bit for bit; then against the plain
+    path (blocked_attention, ssd_chunked or the one-hot MoE dispatch under
+    autograd) from the same parameters."""
     from repro_torch import tree as TR
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
     from repro_torch.training.optimizer import global_norm
     from repro_torch.training.train_step import loss_and_grads
     batch = train_batch(cfg, 0, seed)
-    reset_launch_counts()
-    loss_k, _, grads_k = loss_and_grads(build_model(cfg), params, batch)
-    torch.cuda.synchronize()
-    train_launch_counts(cfg, launch_counts(), launch_kinds(), 1,
-                        "train check, kernel path")
+    runs = []
+    for run in ("", ", again"):
+        reset_launch_counts()
+        runs.append(loss_and_grads(build_model(cfg), params, batch))
+        torch.cuda.synchronize()
+        train_launch_counts(cfg, launch_counts(), launch_kinds(), 1,
+                            f"train check, kernel path{run}")
+    (loss_k, _, grads_k), (loss_2, _, grads_2) = runs
+    same = torch.equal(loss_k, loss_2) and all(
+        torch.equal(a, b) for a, b in zip(TR.leaves(grads_k),
+                                          TR.leaves(grads_2)))
+    require(same, "train check: two identical kernel-path steps gave "
+                  "different losses or gradients")
+    print(f"  train check: two identical kernel-path steps gave the same "
+          f"loss and the same bits in all {len(TR.leaves(grads_k))} "
+          f"gradients")
+    del runs, grads_2
     loss_p, _, grads_p = loss_and_grads(
         build_model(cfg, attn_impl="plain"), params, batch)
     dl = abs(float(loss_k) - float(loss_p))
@@ -2430,50 +2558,105 @@ def check_train_step(cfg, params, seed: int) -> None:
           f"{gk!r} against {gp!r} (rel diff {dn:.3g})")
 
 
+def train_model_flops(cfg, params, n_params: int):
+    """(model FLOPs of one training step, how they were counted): 6 x the
+    parameters each token's products use x tokens, forward and backward
+    (remat's recompute not counted), plus 12 H D a (q, k) pair and
+    attention layer (pairs causal or S x T) and a Mamba layer's scan
+    operations, forward and backward.  A decoder's tokens use every
+    parameter; an MoE decoder's its attention, router, head and k of E
+    experts (not the embedding's lookup); the encoder-decoder's frames its
+    encoder, its target tokens its decoder and the tied head."""
+    tokens = TRAIN_B * TRAIN_S
+    causal, noncausal = train_attention(cfg)
+    pairs = TRAIN_S * (TRAIN_S + 1) // 2   # no window binds at 2048
+    attn = 12.0 * cfg.num_heads * cfg.head_dim * TRAIN_B * (
+        causal * pairs + noncausal * TRAIN_S * TRAIN_S)
+    scan = 0.0
+    if cfg.ssm is not None:
+        B_, S_, H, P, G, N, chunk = ssd_shape(cfg, TRAIN_S)
+        scan = (cfg.num_layers - causal) * (
+            ssd_flops(TRAIN_B, S_, H, P, N, chunk)
+            + ssd_flops(TRAIN_B, S_, H, P, N, chunk, backward=True))
+    count = lambda tree: sum(t.numel() for t in _leaves(tree))  # noqa
+    if cfg.is_encdec:
+        ep = params["encdec"]
+        enc, dec = count(ep["enc_blocks"]), count(ep["dec_blocks"])
+        head = params["embed"].numel()
+        dense = 6.0 * (enc + dec + head) * tokens
+        how = (f"6 x ({enc} encoder parameters x {tokens} frames + ({dec} "
+               f"decoder + {head} tied-head parameters) x {tokens} target "
+               f"tokens)")
+    elif cfg.moe is not None:
+        E, k = cfg.moe.num_experts, cfg.moe.top_k
+        experts = sum(count({n: b["moe"][n] for n in b["moe"]
+                             if n != "router"})
+                      for b in params["blocks"] if "moe" in b)
+        active = n_params - params["embed"].numel() - experts * (E - k) / E
+        dense = 6.0 * active * tokens
+        how = (f"6 x {active:.0f} active parameters (all but the embedding "
+               f"and {E - k} of {E} experts' {experts}) x {tokens} tokens")
+    else:
+        dense = 6.0 * n_params * tokens
+        how = f"6 x {n_params} parameters x {tokens} tokens"
+    return dense + attn + scan, (f"{how} + {attn:.4g} of attention + "
+                                 f"{scan:.4g} of the SSD scan")
+
+
 def run_train(arch: str, seed: int):
-    """``arch`` at full width: the kernel path against the plain path on
-    one step, then TRAIN_STEPS steps of the launcher's train step (the
-    main path: counters reset just before, read just after), each timed on
-    the host clock; then one more step traced.  Returns the run's launch
-    counts and counts by kind."""
+    """``arch`` at full layer width (cut in depth by TRAIN_CUT): the
+    kernel path twice and against the plain path on one step (at
+    TRAIN_CHECK_LAYERS layers where set), then TRAIN_STEPS steps of the
+    launcher's train step (the main path: counters reset just before, read
+    just after), each timed on the host clock; then one more step traced.
+    Returns the run's launch counts and counts by kind (with flash's and
+    its backward's launches not causal)."""
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_scan as SSD
     from repro_torch.kernels.ops import launch_counts, reset_launch_counts
     from repro_torch.models import build_model
-    from repro_torch.models.transformer import block_pattern, num_repeats
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_train_step)
     from torch.profiler import ProfilerActivity, profile
-    cfg = get_config(arch)
+    published = get_config(arch)
+    cfg = cut_config(published, **TRAIN_CUT.get(arch, {}))
     model = build_model(cfg)
     tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT))
+    ssd = ssd_shape(cfg, TRAIN_S) if cfg.ssm is not None else None
+    if ssd:
+        mixer = (f"{ssd[2]} SSD heads, P {ssd[3]}, N {ssd[5]}, G {ssd[4]}, "
+                 f"chunk {ssd[6]}")
+    else:
+        mixer = (f"{cfg.num_heads}/{cfg.num_kv_heads} heads of "
+                 f"{cfg.head_dim}, window {cfg.sliding_window}, attention "
+                 f"softcap {cfg.attn_logit_softcap:g}")
+    if cfg.moe is not None:
+        mixer += (f", {cfg.moe.num_experts} experts top-{cfg.moe.top_k}, "
+                  f"capacity factor {cfg.moe.capacity_factor:g}")
+    layers = (f"{cfg.encoder_layers} + {cfg.num_layers} layers, fp32 frames"
+              if cfg.is_encdec else f"{cfg.num_layers} layers")
+    # the check first, before the optimizer's state is made
+    check = (dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS[arch])
+             if arch in TRAIN_CHECK_LAYERS else cfg)
+    if check is not cfg:
+        print(f"  train check at full width, {check.num_layers} of "
+              f"{cfg.num_layers} layers (TRAIN_CHECK_LAYERS)")
+    check_train_step(check, build_model(check).init(seed, device="cuda"),
+                     seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+
     t0 = time.monotonic()
     params, opt = init_train_state(model, tcfg, seed, device="cuda")
     n_params = sum(t.numel() for t in TR.leaves(params))
-    ssd = ssd_shape(cfg, TRAIN_S) if cfg.ssm is not None else None
-    mixer = (f"{ssd[2]} SSD heads, P {ssd[3]}, N {ssd[5]}, G {ssd[4]}, "
-             f"chunk {ssd[6]}" if ssd else
-             f"{cfg.num_heads}/{cfg.num_kv_heads} heads of {cfg.head_dim}, "
-             f"window {cfg.sliding_window}, attention softcap "
-             f"{cfg.attn_logit_softcap:g}")
-    print(f"[train] {cfg.name} full width, {n_params} parameters, "
-          f"{cfg.num_layers} layers, d_model {cfg.d_model}, {mixer}, "
+    print(f"[train] {cfg.name} {cut_label(published, cfg)}, {n_params} "
+          f"parameters, {layers}, d_model {cfg.d_model}, {mixer}, "
           f"remat={cfg.remat}, batch {TRAIN_B} x {TRAIN_S} tokens, AdamW "
           f"{TRAIN_OPT}, initialised in {time.monotonic() - t0:.1f} s")
     require(n_params == TRAIN_PARAMS[arch],
             f"{cfg.name}: {n_params} parameters, not {TRAIN_PARAMS[arch]}")
-    if arch in TRAIN_CHECK_LAYERS:
-        check = dataclasses.replace(cfg, num_layers=TRAIN_CHECK_LAYERS[arch])
-        print(f"  train check at full width, {check.num_layers} of "
-              f"{cfg.num_layers} layers (TRAIN_CHECK_LAYERS)")
-        check_train_step(check, build_model(check).init(seed,
-                                                         device="cuda"),
-                         seed)
-    else:
-        check_train_step(cfg, params, seed)
-    gc.collect()
-    torch.cuda.empty_cache()
-
     step = make_train_step(model, tcfg)
     batches = [train_batch(cfg, i, seed) for i in range(TRAIN_STEPS + 1)]
     torch.cuda.synchronize()
@@ -2491,9 +2674,12 @@ def run_train(arch: str, seed: int):
     counts, kinds = launch_counts(), launch_kinds()
     train_launch_counts(cfg, counts, kinds, TRAIN_STEPS,
                         f"train main path, {TRAIN_STEPS} steps")
-    from repro_torch.kernels import ssd_scan as SSD
     kinds["ssd_scan_bwd variant"] = dict(
         SSD.ssd_scan_bwd_cuda.variant_launches)
+    kinds["flash_attention noncausal"] = \
+        FA.flash_attention_cuda.noncausal_launches
+    kinds["flash_attention_bwd noncausal"] = \
+        FA.flash_attention_bwd_cuda.noncausal_launches
     require(losses[-1] < losses[0] - TRAIN_MIN_DROP,
             f"train: loss {losses[0]!r} -> {losses[-1]!r}, not down by "
             f"{TRAIN_MIN_DROP}")
@@ -2502,27 +2688,15 @@ def run_train(arch: str, seed: int):
     # warm-up)
     median = float(np.median(host_ms[1:]))
     tokens = TRAIN_B * TRAIN_S
-    pairs = TRAIN_S * (TRAIN_S + 1) // 2     # no window binds at 2048
-    n_attn = num_repeats(cfg) * sum(d.is_attn for d in block_pattern(cfg))
-    attn = 12.0 * n_attn * cfg.num_heads * cfg.head_dim * TRAIN_B * pairs
-    # the scan's own operations, forward and backward, in every Mamba layer
-    scan = 0.0
-    if ssd:
-        B_, S_, H, P, G, N, chunk = ssd
-        scan = (cfg.num_layers - n_attn) * (
-            ssd_flops(TRAIN_B, S_, H, P, N, chunk)
-            + ssd_flops(TRAIN_B, S_, H, P, N, chunk, backward=True))
-    model_flops = 6.0 * n_params * tokens + attn + scan
+    model_flops, how = train_model_flops(cfg, params, n_params)
     print(f"  train: loss {losses[0]!r} -> {losses[-1]!r} in {TRAIN_STEPS} "
           f"steps; host clock {median!r} ms a step (median of steps 1-"
           f"{TRAIN_STEPS - 1}: "
           + ", ".join(f"{t:.1f}" for t in sorted(host_ms[1:])) + ")")
     print(f"  train: peak memory {peak} bytes; {tokens / median * 1e3!r} "
-          f"tokens/s; model FLOPs {model_flops:.4g} a step (6 x parameters "
-          f"x tokens + 12 L H D B pairs of attention + the SSD scan's "
-          f"forward and backward operations a Mamba layer, {scan:.4g}; "
-          f"remat not counted): "
-          f"{model_flops / (median * 1e-3) / 1e12!r} TFLOP/s, MFU "
+          f"tokens/s; model FLOPs {model_flops:.4g} a step ({how}; remat "
+          f"not counted): {model_flops / (median * 1e-3) / 1e12!r} "
+          f"TFLOP/s, MFU "
           f"{model_flops / (median * 1e-3) / PEAK_BF16_FLOPS!r} of "
           f"{PEAK_BF16_FLOPS / 1e12:g} TFLOP/s")
     with profile(activities=[ProfilerActivity.CPU,
@@ -2655,6 +2829,8 @@ def main() -> int:
                check_ssd_bwd(gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
+    print(f"  (kernels checked and timed {time.monotonic() - t_start:.1f} s "
+          f"into the run)")
 
     launches = dict.fromkeys((k["name"] for k in kernels), 0)
     by_model, kinds_by_model = {}, {}
@@ -2715,7 +2891,8 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         print(f"  {cfg.name} freed: {torch.cuda.memory_allocated()} bytes "
-              f"still allocated on the card")
+              f"still allocated on the card "
+              f"({time.monotonic() - t_start:.1f} s into the run)")
 
     # 4-5. the encoder-decoder, at model level: the engine feeds token
     # prompts, and its prefill needs frame embeddings
@@ -2753,13 +2930,27 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 6. training: olmo-1b, then gemma2-2b (the backward at D = 256 under
-    # its softcap), then mamba2-780m (the SSD scan and its backward), at
-    # full width, the forward and backward kernels
+    # its softcap), then mamba2-780m (the SSD scan and its backward), then
+    # mixtral-8x7b cut to 2 layers (MoE through the sorted dispatch), then
+    # seamless-m4t-medium (its encoder in fp32), the forward and backward
+    # kernels
     trains = [f"{arch} training" for arch in TRAIN_PARAMS]
     for arch, train in zip(TRAIN_PARAMS, trains):
         by_model[train], kinds_by_model[train] = run_train(arch, args.seed)
         for name, n in by_model[train].items():
             launches[name] += n
+        print(f"  ({train} done {time.monotonic() - t_start:.1f} s into the "
+              f"run)")
+    # flash's and its backward's rows at the encoder-decoder's training
+    # uses: each wrapper counts its launches not causal (the encoder's and
+    # the cross-attention's) apart from the decoder's causal ones
+    train = f"{ENCDEC} training"
+    for k in (kernels[0], kernels[3]):
+        noncausal = kinds_by_model[train][f"{k['name']} noncausal"]
+        for row in k["models"]:
+            if row["model"] == train:
+                row["launches"] = (noncausal if not row["causal"] else
+                                   by_model[train][k["name"]] - noncausal)
 
     # 7. report
     count_launches(kernels, launches, by_model, kinds_by_model, trains)

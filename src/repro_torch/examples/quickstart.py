@@ -12,8 +12,9 @@ and nemotron-4-340b's 192 too), and every Mamba-2 layer's the SSD-scan
 backward kernel (mamba2-780m); ``--device cpu`` runs the smoke-test
 width.  It trains
 first and serves the same parameters after: serving runs under inference
-mode, whose tensors autograd cannot use.  Only the families the port
-trains are offered (``models.model.check_trainable``).
+mode, whose tensors autograd cannot use.  Every arch is offered, as in
+the JAX quickstart; the engine serves token prompts, so the
+encoder-decoder and the VLM stop after training.
 """
 import argparse
 
@@ -26,23 +27,15 @@ def main():
     from repro_torch.core import Phase, connect
     from repro_torch.device import require_device
     from repro_torch.models import build_model
-    from repro_torch.models.model import check_trainable
     from repro_torch.serving.engine import RealEngine
     from repro_torch.serving.request import Request
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_batch,
                                       make_train_step)
 
-    def trainable(arch):
-        try:
-            check_trainable(get_config(arch))
-        except ValueError:
-            return False
-        return True
-
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo-1b",
-                    choices=[a for a in list_archs() if trainable(a)])
+                    choices=list_archs())
     ap.add_argument("--train-steps", type=int, default=10)
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--device", default="cuda", help="cuda (default) or cpu")

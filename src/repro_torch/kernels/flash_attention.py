@@ -265,7 +265,8 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
     Delta workspace comes from the caching allocator for this call alone
     (autograd runs a backward on its own thread, and a workspace shared
     across calls would race).  Counts its calls in ``.launches`` and each
-    pass's launches in ``.pass_launches``."""
+    pass's launches in ``.pass_launches``, and the calls not causal in
+    ``.noncausal_launches``."""
     build.refuse_grad("flash_attention_bwd", q, k, v, o, dout)
     check_bwd(q)
     _check(q, k, v, kv_len)
@@ -298,8 +299,10 @@ def flash_attention_bwd_cuda(q, k, v, o, lse, dout, *, causal: bool = True,
         flash_attention_bwd_cuda.launches += 1
         for name in BWD_PASSES:
             flash_attention_bwd_cuda.pass_launches[name] += 1
+        flash_attention_bwd_cuda.noncausal_launches += not causal
     return dq, dk, dv
 
 
 flash_attention_bwd_cuda.launches = 0
 flash_attention_bwd_cuda.pass_launches = dict.fromkeys(BWD_PASSES, 0)
+flash_attention_bwd_cuda.noncausal_launches = 0

@@ -172,13 +172,14 @@ def launch_counts() -> Dict[str, int]:
 
 def reset_launch_counts() -> None:
     """Zero every wrapper's count, its counts by kind (KIND_COUNTS),
-    flash's count of launches that were not causal and the SSD backward's
-    counts by variant."""
+    flash's and its backward's counts of launches that were not causal
+    and the SSD backward's counts by variant."""
     for name, fn in CUDA_WRAPPERS.items():
         fn.launches = 0
         kinds = getattr(fn, KIND_COUNTS[name])
         for kind in kinds:
             kinds[kind] = 0
     _fa.flash_attention_cuda.noncausal_launches = 0
+    _fa.flash_attention_bwd_cuda.noncausal_launches = 0
     for kind in _ssd.ssd_scan_bwd_cuda.variant_launches:
         _ssd.ssd_scan_bwd_cuda.variant_launches[kind] = 0

@@ -11,10 +11,17 @@ Trains the model at its full published width on one CUDA card by default;
 
 Checkpoint/restart (auto-resume from the latest committed step of
 ``--ckpt-dir``), async checkpointing, loss logging, optional int8 gradient
-compression, as the JAX launcher.  Families whose backward is not ported
-yet (MoE, and so jamba's hybrid, and the encoder-decoder) are refused
-with a ValueError before anything is built.  (The JAX launcher's sharded
-execution is not part of the port: it runs on one device.)
+compression, as the JAX launcher.  Every family the JAX launcher trains
+trains here: the dense and attention-variant decoders, Mamba-2, the MoE
+decoders and jamba's hybrid (capacity routing through the sorted expert
+dispatch), and the encoder-decoder on fp32 frames:
+
+    python -m repro_torch.launch.train --arch mixtral-8x7b --reduced \
+        --device cpu --steps 2
+
+(The JAX launcher's sharded execution is not part of the port: it runs
+on one device, so a model must fit one card; ``chip_smoke.py`` trains
+mixtral-8x7b cut to 2 of its 32 layers.)
 """
 from __future__ import annotations
 
@@ -37,7 +44,6 @@ def run_training(arch: str, *, reduced: bool = True, steps: int = 50,
     from repro_torch.configs import get_config
     from repro_torch.device import require_device
     from repro_torch.models import build_model
-    from repro_torch.models.model import check_trainable
     from repro_torch.training import (AdamWConfig, TrainConfig,
                                       init_train_state, make_batch,
                                       make_train_step)
@@ -45,7 +51,6 @@ def run_training(arch: str, *, reduced: bool = True, steps: int = 50,
     cfg = get_config(arch)
     if reduced:
         cfg = cfg.reduced()
-    check_trainable(cfg)
     dev = require_device(device)
     model = build_model(cfg)
     tcfg = TrainConfig(

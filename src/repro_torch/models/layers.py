@@ -171,6 +171,30 @@ def _attn_scale(cfg: ModelConfig) -> float:
     return 1.0 / math.sqrt(cfg.head_dim)
 
 
+def project(eq: str, x, w):
+    """``torch.einsum(eq, x, w)`` under the JAX twin's type promotion:
+    the narrower operand is widened first, so fp32 activations against
+    bf16 weights (an encoder over fp32 frames) multiply in fp32, as
+    ``jnp.einsum`` does; operands of one dtype pass as they are."""
+    if x.dtype != w.dtype:
+        dt = torch.promote_types(x.dtype, w.dtype)
+        x, w = x.to(dt), w.to(dt)
+    return torch.einsum(eq, x, w)
+
+
+def widened(attend, q, k, v, **kw):
+    """``attend(q, k, v, **kw)`` with q, k and v in their promoted dtype
+    and the output in q's: a bf16 decoder's cross-attention over an fp32
+    encoder's K/V is one fp32 call on an exact upcast of q, its output
+    rounded to bf16, as the JAX twin's ``blocked_attention`` (whose
+    einsums promote, and which returns q's dtype).  The kernels take one
+    dtype."""
+    if q.dtype == k.dtype:
+        return attend(q, k, v, **kw)
+    dt = torch.promote_types(q.dtype, k.dtype)
+    return attend(q.to(dt), k.to(dt), v.to(dt), **kw).to(q.dtype)
+
+
 def blocked_attention(q, k, v, *, causal: bool, scale: float,
                       q_positions=None, kv_lengths=None, window: int = 0,
                       softcap: float = 0.0, block_q: int = 512,
@@ -361,9 +385,9 @@ def kv_write_decode(cache: Dict, k, v, lengths) -> Dict:
 
 
 def _qkv(cfg: ModelConfig, p: Dict, x, cos, sin):
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"])
+    q = project("bsd,dhk->bshk", x, p["wq"])
+    k = project("bsd,dhk->bshk", x, p["wk"])
+    v = project("bsd,dhk->bshk", x, p["wv"])
     if cos is not None:
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
@@ -387,7 +411,7 @@ def attention_forward(cfg: ModelConfig, p: Dict, x, positions, *,
         out = ops.flash_attention(q, k, v, **kw)
     if cache is not None:
         kv_write_prefill(cache, k, v)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    return project("bshk,hkd->bsd", out, p["wo"]), cache
 
 
 def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
@@ -426,25 +450,26 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
         out = decode_attention(q, kd, vd, window=window, **kw)
     else:
         out = paged_decode_attention(q, kd, vd, **kw)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"]), cache
+    return project("bshk,hkd->bsd", out, p["wo"]), cache
 
 
 def cross_attention_forward(cfg: ModelConfig, p: Dict, x, enc_k, enc_v, *,
                             attn_impl: str = "kernel"):
     """Decoder cross-attention over precomputed encoder K/V (no cache
-    update), unmasked.  x: [B, S, d]; enc_k/enc_v: [B, T, KVH, D]."""
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"])
+    update), unmasked.  x: [B, S, d]; enc_k/enc_v: [B, T, KVH, D], fp32
+    under a bf16 decoder when the encoder ran on fp32 frames (``widened``:
+    the attention in fp32, its output in q's dtype)."""
+    q = project("bsd,dhk->bshk", x, p["wq"])
     kw = dict(causal=False, scale=_attn_scale(cfg))
-    if attn_impl == "plain":
-        out = blocked_attention(q, enc_k, enc_v, **kw)
-    else:
-        out = ops.flash_attention(q, enc_k, enc_v, **kw)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"])
+    attend = blocked_attention if attn_impl == "plain" \
+        else ops.flash_attention
+    out = widened(attend, q, enc_k, enc_v, **kw)
+    return project("bshk,hkd->bsd", out, p["wo"])
 
 
 def cross_kv(cfg: ModelConfig, p: Dict, enc_out):
-    k = torch.einsum("btd,dhk->bthk", enc_out, p["wk"])
-    v = torch.einsum("btd,dhk->bthk", enc_out, p["wv"])
+    k = project("btd,dhk->bthk", enc_out, p["wk"])
+    v = project("btd,dhk->bthk", enc_out, p["wv"])
     return k, v
 
 
@@ -465,15 +490,15 @@ def mlp_params(cfg: ModelConfig, gen: torch.Generator, *, device, lead=(),
 
 
 def apply_mlp(cfg: ModelConfig, p: Dict, x):
-    h = torch.einsum("...d,df->...f", x, p["wi"])
+    h = project("...d,df->...f", x, p["wi"])
     if cfg.activation == Activation.SWIGLU:
-        g = torch.einsum("...d,df->...f", x, p["wg"])
+        g = project("...d,df->...f", x, p["wg"])
         h = F.silu(g) * h
     elif cfg.activation == Activation.GEGLU:
-        g = torch.einsum("...d,df->...f", x, p["wg"])
+        g = project("...d,df->...f", x, p["wg"])
         h = F.gelu(g, approximate="tanh") * h
     elif cfg.activation == Activation.SQUARED_RELU:
         h = torch.square(F.relu(h))
     else:  # GELU
         h = F.gelu(h, approximate="tanh")
-    return torch.einsum("...f,fd->...d", h, p["wo"])
+    return project("...f,fd->...d", h, p["wo"])

@@ -37,11 +37,13 @@ decoder-only config with ``pos_emb=LEARNED`` runs with no positional
 signal.  A hybrid config without its ``ssm`` block, which cannot build
 its Mamba mixers, is refused as invalid.
 
-Training (``loss``) covers the dense and attention-variant decoders and
-Mamba-2 stacks: on the card their backward runs the flash attention and
-SSD-scan backward kernels.  A stack with MoE FFNs (jamba-1.5-large's
-hybrid among them), or an encoder-decoder, is refused with a
-``ValueError`` naming the missing piece (``check_trainable``).
+Training (``loss``) covers every family the JAX package trains: on the
+card each attention layer's backward runs the flash attention backward
+kernel and each Mamba-2 layer's the SSD-scan backward kernel; MoE FFNs
+(mixtral-8x7b, grok-1-314b, jamba-1.5-large's hybrid) route with capacity
+and differentiate through the sorted dispatch (``models/moe.py``); the
+encoder-decoder trains on ``training/data.py``'s fp32 frames, its encoder
+in fp32 (``models/encdec.py``).
 """
 from __future__ import annotations
 
@@ -70,21 +72,6 @@ CE_CHUNK = 512  # sequence-chunked cross-entropy (bounds the logits buffer)
 
 def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Refuse, with a ValueError that names the missing piece, a config
-    whose backward the port does not have yet (ROADMAP queue 1).  On the
-    card those would train through plain versions, or not at all."""
-    if cfg.is_encdec:
-        raise ValueError(
-            f"{cfg.name}: training an encoder-decoder is not ported yet: "
-            f"its batches carry fp32 frame embeddings (training/data.py), "
-            f"and the port's encode takes frames in its weights' dtype")
-    if cfg.moe is not None:
-        raise ValueError(
-            f"{cfg.name}: training MoE blocks is not ported yet: there is "
-            f"no gradient through the sorted expert dispatch")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -170,13 +157,14 @@ class Model:
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
         return x, positions
 
-    def _encdec_pass(self, params, batch, self_caches=None):
+    def _encdec_pass(self, params, batch, self_caches=None, remat=False):
         """Encoder, cross K/V, teacher-forced decoder over the target
-        tokens embedded with the learned positions 0..S-1.  Returns (x,
-        the cross K/V of ``ED.build_cross_cache``)."""
+        tokens embedded with the learned positions 0..S-1; remat
+        checkpoints each encoder and decoder layer.  Returns (x, the cross
+        K/V of ``ED.build_cross_cache``)."""
         ep = params["encdec"]
         enc_out = ED.encode(self.cfg, ep, batch["src_embeds"],
-                            attn_impl=self.attn_impl)
+                            attn_impl=self.attn_impl, remat=remat)
         cross = ED.build_cross_cache(self.cfg, ep, enc_out)
         B, S = batch["tgt_tokens"].shape
         x = self._embed(params, batch["tgt_tokens"])
@@ -184,7 +172,7 @@ class Model:
         positions = torch.arange(S, device=x.device)[None].expand(B, S)
         x, _ = ED.decode_forward(self.cfg, ep, x, cross, positions=positions,
                                  self_caches=self_caches,
-                                 attn_impl=self.attn_impl)
+                                 attn_impl=self.attn_impl, remat=remat)
         return x, cross
 
     # ------------------------------------------------------------ forward
@@ -195,11 +183,12 @@ class Model:
         MoE).  remat (default ``cfg.remat``) checkpoints each repeat of
         the decoder stack when grad is enabled.  dropless=True routes
         without overflow (inference).  An encoder-decoder takes
-        ``{"src_embeds", "tgt_tokens"}`` (and is not trained: no remat)."""
-        if self.cfg.is_encdec:
-            x, _ = self._encdec_pass(params, batch)
-            return x, x.new_zeros((), dtype=torch.float32)
+        ``{"src_embeds", "tgt_tokens"}`` and checkpoints each of its
+        encoder and decoder layers under remat."""
         remat = self.cfg.remat if remat is None else remat
+        if self.cfg.is_encdec:
+            x, _ = self._encdec_pass(params, batch, remat=remat)
+            return x, x.new_zeros((), dtype=torch.float32)
         x, positions = self._inputs(params, batch)
         x, _, aux = T.stack_forward(self.cfg, params["blocks"], x,
                                     positions=positions,
@@ -233,7 +222,6 @@ class Model:
         activation checkpointing, as the JAX twin's ``jax.checkpoint``ed
         scan: a chunk's fp32 logits (and the head widened to fp32 for
         them) are recomputed in the backward pass, not kept."""
-        check_trainable(self.cfg)
         x, aux = self.forward(params, batch, remat=remat)
         labels, mask = self._labels(batch)
         B, S, _ = x.shape

@@ -16,13 +16,32 @@ Two dispatches compute the same function:
   ``[B, s*k, E, C]`` dispatch and combine products around a ``[B, E, C, d]``
   expert batch.  Dropless routing makes ``C = s*k``, so it runs every expert
   over ``E*C`` rows, ``E`` times the work the routed slots need.
-* ``attn_impl="kernel"`` (the default): no one-hot product.  A prefill
-  gathers the kept slots of every chunk at once, sorted by expert, runs one
-  product per expert over its contiguous rows (the expert counts are read to
-  the host once a call) and writes each result, times its gate, back to its
-  slot.  A one-token step (``chunk_size=1``, decode) runs every expert on
-  every token in one product batched over the experts and gathers the
-  picked ones: it reads nothing back to the host.
+* ``attn_impl="kernel"`` (the default): no one-hot product.  A prefill or
+  a training step gathers the kept slots of every chunk at once, sorted by
+  expert, runs one product per expert over its contiguous rows (the expert
+  counts are read to the host once a call) and writes each result, times
+  its gate, back to its slot.  A one-token step (``chunk_size=1``, decode,
+  never under autograd) runs every expert on every token in one product
+  batched over the experts and gathers the picked ones: it reads nothing
+  back to the host.
+
+Both carry the reference's gradient (``jax.grad`` of the one-hot
+dispatch): to the kept slots' inputs, the three expert weights, the gates
+(the renormalized top-k probabilities) and through them and the aux
+loss's ``probs`` to the router; the one-hot mask and the capacity
+positions carry none, and a dropped slot gives its gate none.  The sorted
+dispatch keeps one writer to each gradient element, so two identical
+steps give the same bits: each token is copied once per slot (the
+backward sums its k slot gradients in a fixed order), the slots are
+gathered and scattered back by one permutation (no index repeats), and
+each expert takes its weights from one ``torch.unbind`` (the backward
+stacks them).  Under activation checkpointing the recompute routes as the
+forward did: every operation before the router is deterministic on the
+card (the flash kernel has one writer an output, cuBLAS gives the same
+bits for the same shapes), so the router's fp32 product, its top-k and
+the host counts repeat bit for bit; were a count to differ, the
+recomputed expert products would change shape, and
+``torch.utils.checkpoint`` raises rather than go on.
 
 Neither is a hand-written kernel: the JAX package computes its expert
 products as plain einsums, outside any Pallas kernel.
@@ -74,12 +93,15 @@ def _expert_ffn(cfg: ModelConfig, p: Dict, xe):
     return torch.einsum("becf,efd->becd", h, p["w_down"])
 
 
-def _expert(p: Dict, e: int) -> Dict:
-    """Expert e's weights under ``layers.apply_mlp``'s names."""
-    q = {"wi": p["w_up"][e], "wo": p["w_down"][e]}
-    if "w_gate" in p:
-        q["wg"] = p["w_gate"][e]
-    return q
+def _experts(p: Dict) -> list:
+    """Each expert's weights under ``layers.apply_mlp``'s names, from one
+    ``torch.unbind`` a tensor: under autograd its backward stacks the E
+    experts' gradients into one tensor, where indexing each expert would
+    allocate a zero tensor of all E for every expert's gradient."""
+    names = {"w_up": "wi", "w_down": "wo", "w_gate": "wg"}
+    parts = {names[n]: t.unbind(0) for n, t in p.items() if n in names}
+    return [{n: t[e] for n, t in parts.items()}
+            for e in range(p["w_up"].shape[0])]
 
 
 def capacity(cfg: ModelConfig, s: int, dropless: bool) -> int:
@@ -146,7 +168,9 @@ def _sorted_moe(cfg: ModelConfig, p: Dict, rows, r: Routing, real):
     """Every chunk's kept slots at once, sorted by expert, one product per
     expert.  rows: [N, s, d] (N = chunks x batch rows); real: [N, s] bool,
     False on the padding of the last chunk (its slots count in the aux but
-    skip the experts)."""
+    skip the experts).  Each token is copied to its k slots and the slots
+    are gathered and scattered back by one permutation, so every gradient
+    element has one writer (the module docstring)."""
     N, s, d = rows.shape
     E, k = cfg.moe.num_experts, cfg.moe.top_k
     run = (r.keep & real.repeat_interleave(k, dim=1)).reshape(-1)
@@ -154,17 +178,18 @@ def _sorted_moe(cfg: ModelConfig, p: Dict, rows, r: Routing, real):
     order = torch.argsort(key, stable=True)
     counts = _host_counts(torch.bincount(key, minlength=E + 1)[:E])
     order = order[:sum(counts)]
-    xs = rows.reshape(N * s, d)[order // k]                  # slot -> token
-    out = torch.empty_like(xs)
-    start = 0
+    slots = rows.reshape(N * s, 1, d).expand(N * s, k, d).reshape(-1, d)
+    xs = slots.index_select(0, order)                        # sorted slots
+    experts = _experts(p)
+    outs, start = [], 0
     for e, n in enumerate(counts):
         if n:
-            out[start:start + n] = L.apply_mlp(cfg, _expert(p, e),
-                                               xs[start:start + n])
+            outs.append(L.apply_mlp(cfg, experts[e], xs[start:start + n]))
         start += n
-    gate = r.gate.reshape(-1)[order].to(rows.dtype)
-    y = rows.new_zeros(N * s * k, d)
-    y[order] = out * gate[:, None]
+    out = torch.cat(outs) if outs else xs
+    gate = r.gate.reshape(-1).index_select(0, order).to(rows.dtype)
+    y = rows.new_zeros(N * s * k, d).index_copy(0, order,
+                                                out * gate[:, None])
     return y.view(N, s, k, d).sum(dim=2)
 
 
@@ -189,7 +214,9 @@ def apply_moe(cfg: ModelConfig, p: Dict, x, *, chunk_size: int = 0,
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: [B, S, d] -> (y, aux_loss).  Chunks the sequence (S % chunk by
     zero-padding the last chunk); ``attn_impl`` picks the dispatch (see the
-    module docstring)."""
+    module docstring).  One-token chunks under autograd take the sorted
+    dispatch: the batched one, which runs every expert on every token, is
+    decode's."""
     B, S, d = x.shape
     if chunk_size == 0:
         chunk_size = 256 if dropless else 1024  # dropless capacity is s*k
@@ -214,7 +241,8 @@ def apply_moe(cfg: ModelConfig, p: Dict, x, *, chunk_size: int = 0,
             cfg, p, rows[c * B:(c + 1) * B],
             Routing(*(t[c * B:(c + 1) * B] for t in r)), C)
             for c in range(nc)])
-    elif cs == 1:
+    elif cs == 1 and not (torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, *p.values()))):
         y = _dense_moe(cfg, p, rows, r)
     else:
         real = (torch.arange(nc * cs, device=x.device) < S).view(nc, 1, cs)

@@ -4,8 +4,9 @@ gradients -> AdamW; the twin of ``repro/training/train_step.py``.
 The gradient comes from autograd over ``Model.loss``.  On the card every
 attention layer's forward runs the hand-written flash kernel and its
 backward the hand-written ``flash_attention_bwd`` kernel
-(``kernels.ops.FlashAttentionFn``); families whose backward is not ported
-yet are refused by ``Model.loss``.
+(``kernels.ops.FlashAttentionFn``), every Mamba-2 layer's the SSD scan
+and its backward kernel (``kernels.ops.SSDScanFn``); MoE FFNs take their
+gradient through the sorted expert dispatch (``models/moe.py``).
 """
 from __future__ import annotations
 

@@ -1547,3 +1547,181 @@ def test_reduced_mamba2_training_step_kernel_path_matches_plain_path(cuda):
         a, b = a.float().flatten(), b.float().flatten()
         cos = float(a @ b / (a.norm() * b.norm()))
         assert cos > 0.99, (path, cos)
+
+
+# ---------------------- training the MoE blocks and the encoder-decoder
+def moe_layer_case(dev, seed, d=None, capacity_factor=0.5):
+    """mixtral-8x7b's smoke-width MoE layer on the card (bf16 experts, the
+    fp32 router), d_model ``d`` if given, a capacity factor that drops
+    slots, and unit-RMS rows [2, 96, d] (three chunks of 32)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as MOE
+    cfg = get_config("mixtral-8x7b").reduced()
+    cfg = dataclasses.replace(cfg, d_model=d or cfg.d_model,
+                              moe=dataclasses.replace(
+                                  cfg.moe, capacity_factor=capacity_factor))
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    p = MOE.moe_params(cfg, gen, device=dev)
+    x = torch.randn(2, 96, cfg.d_model, generator=gen, device=dev)
+    return cfg, p, x.bfloat16()
+
+
+def moe_grads(cfg, p, x, impl):
+    from repro_torch.models import moe as MOE
+    leaves = [p[n].requires_grad_() for n in sorted(p)] + \
+        [x.requires_grad_()]
+    y, aux = MOE.apply_moe(cfg, p, x, chunk_size=32, attn_impl=impl)
+    loss = torch.sum(y.float() * torch.linspace(-1, 1, y.shape[-1],
+                                                device=y.device)) + aux
+    return torch.autograd.grad(loss, leaves)
+
+
+@pytest.mark.cuda
+def test_moe_sorted_dispatch_backward_matches_onehot(cuda):
+    """The gradient through the sorted dispatch (the training path: per
+    slot gathers and scatters by one permutation, one product an expert)
+    against autograd through the one-hot dispatch, on the card, with
+    capacity drops: x, the router and the three expert weights each
+    within 2e-2 of its norm (bf16 products rounded at other places)."""
+    from repro_torch.models import moe as MOE
+    cfg, p, x = moe_layer_case(cuda, 11)
+    r = MOE.route(cfg, p, x[:, :32], MOE.capacity(cfg, 32, False))
+    assert not bool(r.keep.all())                 # slots are dropped
+    got = moe_grads(cfg, p, x, "kernel")
+    want = moe_grads(cfg, {n: t.detach() for n, t in p.items()},
+                     x.detach(), "plain")
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype
+        assert rel_err(g, w) < 2e-2, rel_err(g, w)
+
+
+@pytest.mark.cuda
+def test_moe_sorted_dispatch_gradient_is_deterministic(cuda):
+    """Two identical backward passes through the sorted dispatch give the
+    same bits on the card (one writer to every gradient element: no
+    accumulating index-put), at d_model 1024."""
+    cfg, p, x = moe_layer_case(cuda, 12, d=1024)
+    a = moe_grads(cfg, p, x, "kernel")
+    b = moe_grads(cfg, p, x, "kernel")
+    assert all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("S,T", [(2048, 2048), (200, 300)])
+def test_flash_fp32_d64_not_causal_forward_and_backward(cuda, S, T):
+    """seamless-m4t-medium's fp32 attention (the encoder, and the
+    cross-attention of q widened to fp32 over the encoder's K/V), D = 64,
+    not causal, through FlashAttentionFn: the output and (dq, dk, dv)
+    within 2e-5 of their norms of the plain versions'."""
+    rng = np.random.default_rng(S + T)
+    q = on(cuda, rng.standard_normal((2, S, 16, 64)), torch.float32)
+    k, v = (on(cuda, rng.standard_normal((2, T, 16, 64)), torch.float32)
+            for _ in range(2))
+    dout = on(cuda, rng.standard_normal((2, S, 16, 64)), torch.float32)
+    kw = dict(causal=False, scale=0.125)
+    q, k, v = (t.requires_grad_() for t in (q, k, v))
+    ops.reset_launch_counts()
+    out = ops.flash_attention(q, k, v, **kw)
+    got = torch.autograd.grad(out, (q, k, v), dout)
+    assert ops.launch_counts()["flash_attention"] == 1
+    assert ops.launch_counts()["flash_attention_bwd"] == 1
+    assert FA.flash_attention_bwd_cuda.noncausal_launches == 1
+    with torch.no_grad():
+        o, lse = FA.flash_attention_plain(q, k, v, return_lse=True, **kw)
+        want = FA.flash_attention_bwd_plain(q, k, v, o, lse, dout, **kw)
+    rel_close(out.detach(), o, "float32")
+    for g, w in zip(got, want):
+        rel_close(g, w, "float32")
+
+
+@pytest.mark.cuda
+def test_mixed_dtype_cross_attention_takes_the_fp32_kernel(cuda):
+    """A bf16 decoder's cross-attention over fp32 K/V: one fp32 kernel
+    call on q widened (no plain attention), the output bf16, within the
+    bf16 tolerance of the plain blocked_attention on the same inputs."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    cfg = get_config("seamless-m4t-medium").reduced()
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    p = L.attention_params(cfg, gen, device=cuda)
+    x = torch.randn(2, 40, cfg.d_model, generator=gen,
+                    device=cuda).bfloat16()
+    k, v = (torch.randn(2, 56, cfg.num_kv_heads, cfg.head_dim,
+                        generator=gen, device=cuda) for _ in range(2))
+    ops.reset_launch_counts()
+    with torch.no_grad():
+        got = L.cross_attention_forward(cfg, p, x, k, v)
+        assert ops.launch_counts()["flash_attention"] == 1
+        assert FA.flash_attention_cuda.noncausal_launches == 1
+        want = L.cross_attention_forward(cfg, p, x, k, v, attn_impl="plain")
+    assert got.dtype == want.dtype == torch.bfloat16
+    close(got, want, **tol_for("bfloat16"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["mixtral-8x7b", "seamless-m4t-medium",
+                                  "jamba-1.5-large-398b"])
+def test_reduced_moe_and_encdec_training_step_kernel_path_matches_plain_path(
+        cuda, arch, monkeypatch):
+    """At smoke width (head_dim 64) on the card: one loss and gradient on
+    the kernel path (flash, the SSD scan and their backward kernels, the
+    sorted MoE dispatch, remat) twice, bit for bit the same, with every
+    attention layer's launches (seamless-m4t-medium trains on fp32 frames:
+    its encoder and cross-attention launch the fp32 kernels, not causal);
+    then against the plain path (blocked_attention, the one-hot
+    dispatch).  seamless-m4t-medium in bf16: loss within 1e-2, each
+    gradient's cosine at least 0.99.  mixtral-8x7b in fp32 (every
+    parameter, and the embedding not rounded to bf16): loss within 1e-4,
+    cosines at least 0.9999.  In bf16 the two paths round the router's
+    input at other places, and at this width a near-tied top-k pick that
+    flips between them, with the capacity drops it moves, takes the
+    router's gradient to cosine 0.986 (CPU, plain versions); in fp32 both
+    paths pick the same experts.  jamba-1.5-large's 8 MoE layers sit
+    behind Mamba blocks whose fp32 scan the kernel sums in another order
+    (within 1e-3, its own tests): there even fp32 moved the loss by
+    4.3e-4 between the paths on the card, so its whole-model check is the
+    launches and the determinism; its MoE gradient is held layer by layer
+    above and its scan's backward in its own tests."""
+    import dataclasses
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as TMM
+    from repro_torch.training import make_batch
+    from repro_torch.training.train_step import loss_and_grads
+    cfg = dataclasses.replace(get_config(arch).reduced(), head_dim=64)
+    kernel, plain = build_model(cfg), build_model(cfg, attn_impl="plain")
+    params = kernel.init(0, device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in make_batch(cfg, 2, 200, step=0).items()}
+    ops.reset_launch_counts()
+    loss_k, _, grads_k = loss_and_grads(kernel, params, batch)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    n_attn = (cfg.encoder_layers + 2 * cfg.num_layers if cfg.is_encdec
+              else cfg.num_layers // (cfg.attn_every or 1))
+    assert counts["flash_attention"] == 2 * n_attn     # remat
+    assert counts["flash_attention_bwd"] == n_attn
+    assert FA.flash_attention_bwd_cuda.noncausal_launches == (
+        cfg.encoder_layers + cfg.num_layers if cfg.is_encdec else 0)
+    loss_2, _, grads_2 = loss_and_grads(kernel, params, batch)
+    assert torch.equal(loss_k, loss_2)
+    assert all(torch.equal(a, b) for a, b in zip(TR.leaves(grads_k),
+                                                 TR.leaves(grads_2)))
+    if cfg.attn_every:
+        return
+    loss_tol, min_cos = 1e-2, 0.99
+    if cfg.moe is not None:
+        monkeypatch.setattr(TMM.Model, "_embed",
+                            lambda self, p, t: p["embed"][t])
+        params = TR.map_tree(lambda t: t.detach().float(), params)
+        loss_k, _, grads_k = loss_and_grads(kernel, params, batch)
+        loss_tol, min_cos = 1e-4, 0.9999
+    loss_p, _, grads_p = loss_and_grads(plain, params, batch)
+    assert abs(float(loss_k) - float(loss_p)) < loss_tol
+    for (path, a), b in zip(TR.flatten_with_paths(grads_k),
+                            TR.leaves(grads_p)):
+        a, b = a.float().flatten(), b.float().flatten()
+        cos = float(a @ b / (a.norm() * b.norm()))
+        assert cos > min_cos, (path, cos)

@@ -5,6 +5,10 @@ heads of 32) with the JAX init's parameters carried across by
 ``repro_torch.bridge``: each function of ``models/encdec.py`` and the two
 cross-attention layers beside their twins, then the ``Model`` end to end.
 The full-width init is traced with fake tensors (nothing allocated).
+Training's fp32 frames (``make_batch``) against the bf16 weights: the
+encoder in fp32 and the bf16 decoder's cross-attention over its fp32 K/V
+against the JAX functions' type promotion (the gradient tree is in
+``tests/test_torch_training.py``).
 
 Tolerances, with their reasons (those of ``tests/test_torch_models.py``):
 
@@ -422,16 +426,78 @@ def test_decode_clips_the_position_table(models):
 
 
 def test_src_embeds_must_take_the_weights_dtype(models):
-    """fp32 frames against bf16 weights are refused, naming the dtypes
-    (the JAX package promotes its encoder to fp32; not ported)."""
-    _, _, tm, tparams = models
-    tgt = torch.zeros((B, P), dtype=torch.long)
-    st = bf16_frames(19)[1].float()
-    with pytest.raises(ValueError, match="torch.float32"):
-        tm.forward(tparams, {"src_embeds": st, "tgt_tokens": tgt})
-    with pytest.raises(ValueError, match="torch.float32"):
-        tm.prefill(tparams, {"src_embeds": st, "tgt_tokens": tgt},
-                   tm.init_cache(B, S, device="cpu"))
+    """fp32 frames against bf16 weights promote the encoder to fp32, as
+    the JAX package's type promotion does (no longer refused): the
+    teacher-forced logits and a prefill against the JAX Model's on the
+    same fp32 frames, under the bounds of tests/test_models_decode.py;
+    the prefill keeps an fp32 cross cache, which decode attends in fp32."""
+    jm, jparams, tm, tparams = models
+    tgt = np.random.default_rng(19).integers(0, 256, (B, S)).astype(np.int32)
+    src = np.asarray(frames(19), np.float32) * 0.02
+    jb = {"src_embeds": jnp.asarray(src), "tgt_tokens": jnp.asarray(tgt)}
+    tb = {"src_embeds": torch.from_numpy(src.copy()),
+          "tgt_tokens": torch.from_numpy(tgt).long()}
+    xj, _ = jax.jit(lambda p, b: jm.forward(p, b, remat=False))(jparams, jb)
+    want = torch.from_numpy(np.array(jm._logits(jparams, xj)))
+    x, _ = tm.forward(tparams, tb)
+    assert x.dtype == torch.bfloat16
+    got = tm._logits(tparams, x)
+    for i in range(S):
+        assert _prob_err(got[:, i], want[:, i]) < 0.05
+        assert _tie_agree(got[:, i], want[:, i])
+    cache = tm.init_cache(B, S, device="cpu")
+    lg, cache, _ = tm.prefill(tparams, {"src_embeds": tb["src_embeds"],
+                                        "tgt_tokens": tb["tgt_tokens"][:, :P]},
+                              cache)
+    assert cache["cross_k"].dtype == cache["cross_v"].dtype == torch.float32
+    assert _prob_err(lg, want[:, P - 1]) < 0.05
+    lg, _ = tm.decode(tparams, tb["tgt_tokens"][:, P], cache,
+                      torch.full((B,), P, dtype=torch.int32))
+    assert _prob_err(lg, want[:, P]) < 0.05 and _tie_agree(lg, want[:, P])
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_fp32_frames_encode_matches_jax(models, cfgs, impl):
+    """make_batch's fp32 frames against the init's bf16 weights: the whole
+    encoder in fp32 on both sides (each weight widened at its product),
+    so fp32's tolerance holds; the cross K/V come out fp32 too."""
+    jcfg, tcfg = cfgs
+    _, jparams, _, tparams = models
+    jp, tp = jparams["encdec"], tparams["encdec"]
+    src = np.asarray(frames(23), np.float32) * 0.02
+    want = JED.encode(jcfg, jp, jnp.asarray(src))
+    got = TED.encode(tcfg, tp, torch.from_numpy(src.copy()), attn_impl=impl)
+    assert want.dtype == jnp.float32 and got.dtype == torch.float32
+    close(got, want, **F32)
+    cj = JED.build_cross_cache(jcfg, jp, want)
+    ct = TED.build_cross_cache(tcfg, tp, got)
+    for name in ("cross_k", "cross_v"):
+        assert ct[name].dtype == torch.float32
+        close(ct[name], cj[name], **F32)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+def test_mixed_dtype_cross_attention_matches_jax(models, cfgs, impl):
+    """A bf16 decoder's cross-attention over an fp32 encoder's K/V: the
+    JAX twin's einsums promote q exactly and its blocked_attention
+    returns q's dtype; the port makes one fp32 call on q widened, its
+    output cast to bf16, then the bf16 out-projection.  Within the bf16
+    kernel tolerance (2e-2), after the one rounding of the attention's
+    output on both sides."""
+    jcfg, tcfg = cfgs
+    _, jparams, _, tparams = models
+    rng = np.random.default_rng(24)
+    xj, xt = bf16_frames(25, n=5)
+    kj, kt = both(rng.standard_normal((B, S_ENC, 4, 32)))
+    vj, vt = both(rng.standard_normal((B, S_ENC, 4, 32)))
+    pj = jax.tree.map(lambda a: a[0],
+                      jparams["encdec"]["dec_blocks"])["cross_attn"]
+    pt = {n: t[0] for n, t in
+          tparams["encdec"]["dec_blocks"]["cross_attn"].items()}
+    want = JL.cross_attention_forward(jcfg, pj, xj, kj, vj)
+    got = TL.cross_attention_forward(tcfg, pt, xt, kt, vt, attn_impl=impl)
+    assert want.dtype == jnp.bfloat16 and got.dtype == torch.bfloat16
+    close(got, want, rtol=2e-2, atol=2e-2)
 
 
 def test_kernel_and_plain_impls_agree_on_cpu(models, cfgs):

@@ -10,7 +10,10 @@ products of a prefill and the batched one-token products of a decode), in
 dropless and capacity routing, with chunks that pad.  Then mixtral-8x7b
 (SwiGLU experts, a sliding window) and grok-1-314b (GeGLU experts, a
 softcap of 30, int8 KV caches) at ``reduced()`` width (4 layers, d_model
-128, 4 experts top-2) against the JAX ``Model``.
+128, 4 experts top-2) against the JAX ``Model``.  Last, the gradient of
+``apply_moe`` under capacity routing, as training routes, on both
+dispatches against ``jax.grad`` of the reference (the models' whole
+gradient trees are in ``tests/test_torch_training.py``).
 
 Tolerances, with their reasons:
 
@@ -516,3 +519,127 @@ def test_prefill_routes_dropless():
             for d in (True, False)]
     torch.testing.assert_close(lg, last[0])
     assert _prob_err(lg, last[1]) > 1e-3
+
+
+# ---------------------------------------------------------------- gradient
+GRAD_CASES = ("capacity", "drops", "skewed", "ragged")
+GRAD_REL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+@pytest.mark.parametrize("case", GRAD_CASES)
+def test_apply_moe_gradient_matches_jax_grad(case, impl, dtype):
+    """The gradient of <y, c> + 10 aux (capacity routing, as training
+    routes; ``drops`` and ``skewed`` drop slots, ``ragged`` pads its last
+    chunk) with respect to x, the router and the three expert weights,
+    against ``jax.grad`` of the reference's one-hot dispatch: each within
+    1e-5 of its norm in fp32 (the same fp32 sums in another order), 2e-2
+    in bf16 (both sides round the products to bf16 at other places;
+    measured at most 4.4e-7 and 6.9e-3).  The
+    aux term's weight makes the router's path through ``probs`` count
+    beside its path through the gates."""
+    change, skew, shift, shape, chunk, dropless = MOES[case]
+    assert not dropless
+    jcfg, tcfg = cfgs(**change)
+    pj, pt = moe_trees(jcfg, dtype, skew)
+    xj, xt = inputs((*shape, 128), dtype, seed=4, shift=shift)
+    c = np.random.default_rng(9).standard_normal((*shape, 128)) \
+        .astype(np.float32)
+
+    def jloss(p, x):
+        y, aux = JM.apply_moe(jcfg, p, x, chunk_size=chunk)
+        return jnp.sum(y.astype(jnp.float32) * c) + 10.0 * aux
+    jgp, jgx = jax.grad(jloss, argnums=(0, 1))(pj, xj)
+    names = sorted(pt)
+    leaves = [pt[n].requires_grad_() for n in names] + [xt.requires_grad_()]
+    y, aux = TM.apply_moe(tcfg, pt, xt, chunk_size=chunk, attn_impl=impl)
+    loss = torch.sum(y.float() * torch.from_numpy(c)) + 10.0 * aux
+    got = torch.autograd.grad(loss, leaves)
+    for name, g, w in zip(names + ["x"], got, [jgp[n] for n in names]
+                          + [jgx]):
+        w = np.asarray(w, np.float32)
+        assert g.dtype == leaves[(names + ["x"]).index(name)].dtype, name
+        err = float(np.linalg.norm(g.float().numpy() - w)
+                    / np.linalg.norm(w))
+        assert err < GRAD_REL[dtype], (name, err)
+
+
+@pytest.mark.parametrize("impl", ["kernel", "plain"])
+def test_dropped_slots_give_their_gate_no_gradient(impl):
+    """With a capacity factor of 0.5 a third of the slots overflow: the
+    output's gradient reaches the gate of every kept slot and of no
+    dropped one, on both dispatches."""
+    jcfg, tcfg = cfgs(capacity_factor=0.5)
+    _, pt = moe_trees(jcfg, "float32")
+    _, x = inputs((2, 24, 128), "float32", seed=5)
+    C = TM.capacity(tcfg, 24, False)
+    r = TM.route(tcfg, pt, x, C)
+    gate = r.gate.detach().requires_grad_()
+    r = r._replace(gate=gate)
+    if impl == "plain":
+        y = TM._onehot_moe(tcfg, pt, x, r, C)
+    else:
+        y = TM._sorted_moe(tcfg, pt, x, r,
+                           torch.ones(2, 24, dtype=torch.bool))
+    (g,) = torch.autograd.grad(y.square().sum(), gate)
+    assert 0 < int((~r.keep).sum()) < r.keep.numel()
+    assert bool((g[~r.keep] == 0).all())
+    assert bool((g[r.keep] != 0).all())
+
+
+def test_sorted_dispatch_gradient_is_deterministic():
+    """Two identical backward passes through the sorted dispatch give the
+    same bits (on the card too: tests/test_torch_cuda.py), and a
+    one-token chunk under autograd takes it, not the batched decode
+    products."""
+    jcfg, tcfg = cfgs(capacity_factor=0.5)
+    _, pt = moe_trees(jcfg, "bfloat16")
+    _, x = inputs((2, 40, 128), "bfloat16", seed=6)
+    leaves = [pt[n].requires_grad_() for n in sorted(pt)]
+    runs = []
+    for _ in range(2):
+        y, aux = TM.apply_moe(tcfg, pt, x, chunk_size=16)
+        runs.append(torch.autograd.grad(y.float().square().sum() + aux,
+                                        leaves))
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+    def refuse(*a, **k):
+        raise AssertionError("the batched decode products under autograd")
+    import unittest.mock
+    with unittest.mock.patch.object(TM, "_dense_moe", refuse):
+        y, _ = TM.apply_moe(tcfg, pt, x[:, :1], chunk_size=1, dropless=True)
+    assert y.requires_grad
+
+
+def test_a_recompute_that_routes_otherwise_raises(monkeypatch):
+    """Under remat each block's recompute reads the expert counts again;
+    were they to differ from the forward's (a near tie rounded the other
+    way), the recomputed expert products would change shape, and
+    torch.utils.checkpoint raises instead of differentiating another
+    routing.  Simulated by moving one slot between two experts' counts on
+    every read after the forward's."""
+    from torch.utils.checkpoint import CheckpointError
+    cfg = get_config("mixtral-8x7b").reduced()
+    model = build_model(cfg)
+    params = model.init(0, device="cpu")
+    leaves = list(_leaves(params))
+    for t in leaves:
+        t.requires_grad_(True)
+    toks = torch.from_numpy(np.random.default_rng(13).integers(
+        0, cfg.vocab_size, (2, 48)))
+    reads = []
+    host_counts = TM._host_counts
+
+    def counts(c):
+        out = host_counts(c)
+        reads.append(1)
+        if len(reads) > cfg.num_layers:          # the backward's recompute
+            a, b = [e for e, n in enumerate(out) if n][:2]
+            out[a], out[b] = out[a] - 1, out[b] + 1
+        return out
+    monkeypatch.setattr(TM, "_host_counts", counts)
+    loss, _ = model.loss(params, {"tokens": toks}, remat=True)
+    assert len(reads) == cfg.num_layers
+    with pytest.raises(CheckpointError):
+        torch.autograd.grad(loss, leaves)
