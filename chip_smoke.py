@@ -138,7 +138,29 @@ config sets it:
             launches not causal (the encoder's and the cross-attention's)
             apart; each step on the host clock, peak memory, tokens/s and
             model-FLOPs utilisation, then one step traced.
-7. report   one ``{"kernels": [...]}`` line, then the card line, then
+Then the distributed layer, on a NCCL process group of one rank (a
+HashStore: no port) and the 1 x 1 (data, model) DeviceMesh on the card:
+7. distributed
+            olmo-1b's full-width parameters, annotated with their logical
+            axes, laid out by the train rules (each local shard equal to the
+            parameter bit for bit); its full-width gradient tree
+            (1,176,764,416 bf16 elements, one step of batch 0) through
+            the int8-compressed all-reduce over the data axis's group,
+            bit for bit the int8 fake-quant on every leaf, timed, with the
+            bytes a rank would send at 2, 4 and 16 ranks beside a bf16
+            ring all-reduce's; then olmo-1b at full layer width cut to 2
+            of its 16 layers (237,240,320 parameters): 6 steps of the
+            launcher's train step, its gradients through the compressed
+            all-reduce, under run_with_restarts (save every 2, keep 2, in
+            a temporary directory it removes), one failure raised after
+            step 1 has updated the state in place and one before step 4,
+            the launch counters reset just before and read just after
+            (the forward kernel twice and the backward once a layer a step
+            executed); the final parameters and AdamW state must equal an
+            uninterrupted run's from the same seed bit for bit; the steps
+            re-executed, each step's time, each save's and restore's
+            seconds and GB/s.
+8. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -307,6 +329,30 @@ TRAIN_GNORM_TOL = 3e-2        # relative difference of the global norms
 # at all 48, where the two bf16 paths are 0.50 apart; so the gate holds
 # the paths to each other at 4 layers, and the 48 train
 TRAIN_CHECK_LAYERS = {"mamba2-780m": 4}
+# the distributed layer: a NCCL group of one rank (a HashStore, no port),
+# the 1 x 1 (data, model) mesh; olmo-1b's full-width parameters laid out by
+# the train rules, and its full-width gradient tree through the
+# int8-compressed all-reduce over the data axis's group; the wire bytes
+# of that design and of a bf16 ring all-reduce at DIST_RANKS ranks
+DIST_ARCH = "olmo-1b"
+DIST_MESH = ((1, 1), ("data", "model"))
+DIST_RANKS = (2, 4, 16)
+DIST_ITERS = 5
+# restarts: olmo-1b at full layer width cut to 2 of its 16 layers (10
+# bytes a parameter of training state, 2.37 GB a checkpoint; the whole
+# model's 11.8 GB, written several times over, does not belong in a smoke
+# run), the launcher's train step through the compressed all-reduce,
+# RESTART_STEPS steps under run_with_restarts, saving every
+# RESTART_SAVE_EVERY steps and keeping RESTART_KEEP; one failure raised
+# after step 1 has updated the state in place (before the first save: the
+# restart reads back the step-0 checkpoint) and one before step 4 runs
+RESTART_CUT = dict(num_layers=2)
+RESTART_PARAMS = 237_240_320
+RESTART_STEPS = 6
+RESTART_SAVE_EVERY = 2
+RESTART_KEEP = 2
+RESTART_FAIL_AFTER = (1,)
+RESTART_FAIL_BEFORE = (4,)
 
 
 class SmokeFailure(RuntimeError):
@@ -2714,6 +2760,250 @@ def run_train(arch: str, seed: int):
     return counts, kinds
 
 
+def check_layout(mesh, mcfg, cfg, seed: int):
+    """olmo-1b's full-width parameters (annotated) laid out on ``mesh`` by
+    the train rules: each rank-local shard (one rank: the whole tensor)
+    equal to the parameter bit for bit.  Returns the unboxed tree."""
+    from repro_torch import tree as TR
+    from repro_torch.distributed.sharding import (make_rules,
+                                                  make_shardings, unbox)
+    from repro_torch.models import build_model
+    ann = build_model(cfg).init_annotated(seed, device="cuda")
+    shardings = make_shardings(mesh, make_rules(cfg, mcfg, "train"), ann)
+    for (path, p), s in zip(TR.flatten_with_paths(ann),
+                            TR.leaves(shardings)):
+        local = s.distribute(p.value).to_local()
+        require(local.device == p.value.device
+                and torch.equal(local, p.value),
+                f"layout: {path}'s local shard differs from the parameter")
+        print(f"  layout: {path} {tuple(p.value.shape)} axes {p.axes} spec "
+              f"{s.spec} placements {s.placements(p.value.dim())}: the "
+              f"local shard equals the parameter bit for bit")
+        del local
+    return unbox(ann)
+
+
+def check_allreduce(group, grads) -> None:
+    """The int8-compressed all-reduce over ``group`` (one rank) on every
+    leaf of the full-width gradient tree: bit for bit the int8 fake-quant
+    (the same function at one rank); its time over the tree beside the
+    fake-quant's and NCCL's bf16 all-reduce's, and the bytes a rank would
+    send at DIST_RANKS ranks."""
+    import torch.distributed as dist
+    from repro_torch import tree as TR
+    from repro_torch.distributed.collectives import (compressed_allreduce,
+                                                     wire_bytes)
+    from repro_torch.training import quantize_dequantize_int8
+    reduce = compressed_allreduce(group)
+    leaves = TR.leaves(grads)
+    numel = sum(g.numel() for g in leaves)
+    require(numel == TRAIN_PARAMS[DIST_ARCH]
+            and all(g.dtype == torch.bfloat16 for g in leaves),
+            f"allreduce: {numel} gradient elements, not "
+            f"{TRAIN_PARAMS[DIST_ARCH]} bf16")
+    for path, g in TR.flatten_with_paths(grads):
+        got, want = reduce(g), quantize_dequantize_int8(g)
+        if got.dtype != g.dtype or not torch.equal(got, want):
+            raise SmokeFailure(f"allreduce: {path} differs from the int8 "
+                               f"fake-quant (max |diff| "
+                               f"{max_err(got, want)!r})")
+        del got, want
+    print(f"  allreduce: the compressed all-reduce equals the int8 "
+          f"fake-quant bit for bit on all {len(leaves)} leaves "
+          f"({numel} bf16 elements)")
+    ms = time_ms(lambda: [reduce(g) for g in leaves], DIST_ITERS, warmup=1)
+    qdq_ms = time_ms(lambda: [quantize_dequantize_int8(g) for g in leaves],
+                     DIST_ITERS, warmup=1)
+    bufs = [g.clone() for g in leaves]
+    nccl_ms = time_ms(lambda: [dist.all_reduce(b, group=group)
+                               for b in bufs], DIST_ITERS, warmup=1)
+    del bufs
+    print(f"  allreduce: one pass over the tree {ms!r} ms (CUDA events, "
+          f"mean of {DIST_ITERS}); the fake-quant alone {qdq_ms!r} ms; "
+          f"NCCL's bf16 all-reduce at one rank (no bytes cross a link) "
+          f"{nccl_ms!r} ms")
+    for n in DIST_RANKS:
+        ours = sum(wire_bytes(g.numel(), n)[0] for g in leaves)
+        bf16 = sum(wire_bytes(g.numel(), n)[1] for g in leaves)
+        print(f"  allreduce: at {n} ranks a rank would send {ours:.6g} "
+              f"bytes (int8 all-gather) against {bf16:.6g} (bf16 ring "
+              f"all-reduce): {ours / bf16:.4g}x")
+
+
+def run_restarts(cfg, seed: int):
+    """RESTART_STEPS steps of the launcher's train step (its gradients
+    through the compressed all-reduce over the default group) under
+    run_with_restarts with injected failures, against an uninterrupted run
+    from its own parameters drawn from the same seed: the final parameters
+    and AdamW state bit for bit; the re-executed steps, each step's time,
+    each save's and restore's seconds and GB/s.  The launch counters are
+    reset just before the restart run and read just after; returns them
+    (counts, by kind)."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.distributed.fault_tolerance import (InjectedFailure,
+                                                         run_with_restarts)
+    from repro_torch.kernels.ops import launch_counts, reset_launch_counts
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_train_step)
+    model = build_model(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(**TRAIN_OPT), grad_compression="int8")
+    batches = [train_batch(cfg, i, seed) for i in range(RESTART_STEPS)]
+
+    def fresh():
+        params, opt = init_train_state(model, tcfg, seed, device="cuda")
+        return {"params": params, "opt": opt}
+
+    step = make_train_step(model, tcfg, group=dist.group.WORLD)
+    clean = fresh()
+    n_params = sum(t.numel() for t in TR.leaves(clean["params"]))
+    nbytes = sum(t.numel() * t.element_size() for t in TR.leaves(clean))
+    require(n_params == RESTART_PARAMS,
+            f"restarts: {n_params} parameters, not {RESTART_PARAMS}")
+    print(f"[restarts] {cfg.name} at full layer width, {cfg.num_layers} of "
+          f"its 16 layers, {n_params} parameters, {nbytes} bytes of "
+          f"training state; batch {TRAIN_B} x {TRAIN_S}, {RESTART_STEPS} "
+          f"steps, save every {RESTART_SAVE_EVERY}, keep {RESTART_KEEP}; "
+          f"failures after step(s) {RESTART_FAIL_AFTER} and before "
+          f"{RESTART_FAIL_BEFORE}")
+    clean_losses = []
+    for i in range(RESTART_STEPS):
+        p, o, m = step(clean["params"], clean["opt"], batches[i])
+        clean = {"params": p, "opt": o}
+        clean_losses.append(float(m["loss"]))
+    print(f"  restarts: the uninterrupted run's losses {clean_losses}")
+
+    class Timed(Checkpointer):
+        """Each save's and restore's seconds, the card synchronised."""
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            self.times = []
+
+        def save(self, step_, tree, *, blocking=True):
+            torch.cuda.synchronize()
+            t0 = time.monotonic()
+            super().save(step_, tree, blocking=blocking)
+            self.times.append(("save", step_, time.monotonic() - t0))
+
+        def restore(self, step_, like_tree):
+            t0 = time.monotonic()
+            out = super().restore(step_, like_tree)
+            torch.cuda.synchronize()
+            self.times.append(("restore", step_, time.monotonic() - t0))
+            return out
+
+    fail_after, fail_before = set(RESTART_FAIL_AFTER), set(RESTART_FAIL_BEFORE)
+    ran, losses = [], {}
+
+    def step_fn(i, state):
+        if i in fail_before:
+            fail_before.discard(i)
+            raise InjectedFailure(f"injected before step {i}")
+        t0 = time.monotonic()
+        p, o, m = step(state["params"], state["opt"], batches[i])
+        losses[i] = float(m["loss"])               # waits for the step
+        ran.append((i, 1e3 * (time.monotonic() - t0)))
+        if i in fail_after:
+            fail_after.discard(i)
+            raise InjectedFailure(f"injected after step {i} updated the "
+                                  f"state in place")
+        return {"params": p, "opt": o}
+
+    directory = tempfile.mkdtemp(prefix="chip_smoke_restarts_")
+    try:
+        ckpt = Timed(directory, keep=RESTART_KEEP)
+        state = fresh()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.monotonic()
+        out = run_with_restarts(RESTART_STEPS, step_fn, state, ckpt,
+                                save_every=RESTART_SAVE_EVERY)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        counts, kinds = launch_counts(), launch_kinds()
+        kept = ckpt.all_steps()
+    finally:
+        shutil.rmtree(directory, ignore_errors=True)
+    executed = [i for i, _ in ran]
+    want = [0, 1, 0, 1, 2, 3, 4, 5]
+    require(executed == want,
+            f"restarts: steps ran in the order {executed}, expected {want}")
+    train_launch_counts(cfg, counts, kinds, len(executed),
+                        f"restart run, {len(executed)} step executions")
+    require(kept == [RESTART_STEPS - RESTART_SAVE_EVERY, RESTART_STEPS],
+            f"restarts: committed steps {kept} at the end")
+    got, ref = TR.flatten_with_paths(out), TR.flatten_with_paths(clean)
+    require([p for p, _ in got] == [p for p, _ in ref],
+            "restarts: the final state's tree differs from the "
+            "uninterrupted run's")
+    for (path, a), (_, b) in zip(got, ref):
+        if a.dtype != b.dtype or not torch.equal(a, b):
+            raise SmokeFailure(f"restarts: {path} differs from the "
+                               f"uninterrupted run (max |diff| "
+                               f"{max_err(a.detach(), b.detach())!r})")
+    require([losses[i] for i in range(RESTART_STEPS)] == clean_losses,
+            f"restarts: losses {losses} against {clean_losses}")
+    print(f"  restarts: the final parameters and AdamW state equal the "
+          f"uninterrupted run's bit for bit in all {len(got)} leaves; "
+          f"steps ran {executed} ({len(executed) - RESTART_STEPS} "
+          f"re-executed), {wall!r} s in all")
+    print("  restarts: step times (host clock, ms) " + ", ".join(
+        f"{i}: {ms:.1f}" for i, ms in ran))
+    for kind, s_, sec in ckpt.times:
+        print(f"  restarts: {kind} of step {s_}: {sec!r} s, "
+              f"{nbytes / sec / 1e9!r} GB/s ({nbytes} bytes)")
+    del out, clean, state, batches
+    return counts, kinds
+
+
+def run_distributed(seed: int):
+    """The distributed phase: a NCCL group of one rank and its mesh, the
+    layout of olmo-1b's full-width parameters, the compressed all-reduce
+    on its full-width gradient tree, then the restart run (the main path:
+    its launch counts and counts by kind are returned)."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.mesh import make_mesh_from_config
+    from repro_torch.models import build_model
+    from repro_torch.training.train_step import loss_and_grads
+    torch.cuda.set_device(0)        # the mesh's communicators' device
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    try:
+        require(dist.get_backend() == "nccl",
+                f"distributed: backend {dist.get_backend()}, not nccl")
+        mcfg = MeshConfig(*DIST_MESH)
+        mesh = make_mesh_from_config(mcfg)
+        require(mesh.device_type == "cuda"
+                and tuple(mesh.mesh_dim_names) == mcfg.axes
+                and tuple(mesh.shape) == mcfg.shape,
+                f"distributed: mesh {mesh}")
+        group = mesh.get_group("data")
+        print(f"[distributed] NCCL, world size {dist.get_world_size()}, "
+              f"mesh {dict(zip(mcfg.axes, mcfg.shape))} on "
+              f"{mesh.device_type}; the data axis's group backend "
+              f"{dist.get_backend(group)}")
+        cfg = get_config(DIST_ARCH)
+        params = check_layout(mesh, mcfg, cfg, seed)
+        _, _, grads = loss_and_grads(build_model(cfg), params,
+                                     train_batch(cfg, 0, seed))
+        del params
+        check_allreduce(group, grads)
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+        return run_restarts(cut_config(cfg, **RESTART_CUT), seed)
+    finally:
+        dist.destroy_process_group()
+
+
 def count_launches(kernels, launches, by_model, kinds_by_model,
                    trains) -> None:
     """Write into each entry of the kernels line its launches on the main
@@ -2952,7 +3242,19 @@ def main() -> int:
                 row["launches"] = (noncausal if not row["causal"] else
                                    by_model[train][k["name"]] - noncausal)
 
-    # 7. report
+    # 7. the distributed layer: olmo-1b's layout and compressed all-reduce
+    # at full width, then its training step cut to 2 layers under
+    # run_with_restarts (the main path: counters reset just before)
+    restarts = f"{DIST_ARCH} restarts"
+    by_model[restarts], kinds_by_model[restarts] = run_distributed(
+        args.seed)
+    for name, n in by_model[restarts].items():
+        launches[name] += n
+    trains.append(restarts)
+    print(f"  (distributed done {time.monotonic() - t_start:.1f} s into the "
+          f"run)")
+
+    # 8. report
     count_launches(kernels, launches, by_model, kinds_by_model, trains)
     print(f"[report] the run took {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -19,9 +19,14 @@ dispatch), and the encoder-decoder on fp32 frames:
     python -m repro_torch.launch.train --arch mixtral-8x7b --reduced \
         --device cpu --steps 2
 
-(The JAX launcher's sharded execution is not part of the port: it runs
-on one device, so a model must fit one card; ``chip_smoke.py`` trains
-mixtral-8x7b cut to 2 of its 32 layers.)
+As the JAX launcher's code does, it trains on one device, so a model must
+fit one card; ``chip_smoke.py`` trains mixtral-8x7b cut to 2 of its 32
+layers.  The port's distributed layer stands beside it:
+``distributed.sharding`` lays a model's annotated parameters
+(``Model.init_annotated``) out over a ``DeviceMesh`` (``launch/mesh.py``),
+``make_train_step(..., group=)`` reduces the gradients through the
+int8-compressed all-reduce, and ``distributed.fault_tolerance
+.run_with_restarts`` drives a train step through failures.
 """
 from __future__ import annotations
 

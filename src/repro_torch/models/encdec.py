@@ -30,6 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import prepend_axis
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _layer, _unbind
 
@@ -38,8 +39,8 @@ from repro_torch.models.transformer import _layer, _unbind
 POS_TABLE_LEN = 32_768
 
 
-def _enc_block_init(cfg: ModelConfig, gen, *, device, lead) -> Dict:
-    kw = dict(device=device, lead=lead)
+def _enc_block_init(cfg: ModelConfig, gen, *, device, lead, box) -> Dict:
+    kw = dict(device=device, lead=lead, box=box)
     return {
         "norm_attn": L.norm_init(cfg, cfg.d_model, **kw),
         "attn": L.attention_params(cfg, gen, **kw),
@@ -48,8 +49,8 @@ def _enc_block_init(cfg: ModelConfig, gen, *, device, lead) -> Dict:
     }
 
 
-def _dec_block_init(cfg: ModelConfig, gen, *, device, lead) -> Dict:
-    kw = dict(device=device, lead=lead)
+def _dec_block_init(cfg: ModelConfig, gen, *, device, lead, box) -> Dict:
+    kw = dict(device=device, lead=lead, box=box)
     return {
         "norm_self": L.norm_init(cfg, cfg.d_model, **kw),
         "self_attn": L.attention_params(cfg, gen, **kw),
@@ -60,17 +61,18 @@ def _dec_block_init(cfg: ModelConfig, gen, *, device, lead) -> Dict:
     }
 
 
-def encdec_init(cfg: ModelConfig, gen, *, device) -> Dict:
-    table = (POS_TABLE_LEN, cfg.d_model)
+def encdec_init(cfg: ModelConfig, gen, *, device, box: bool = False) -> Dict:
+    table, table_axes = (POS_TABLE_LEN, cfg.d_model), (None, "embed")
+    kw = dict(device=device, box=box)
     return {
-        "enc_blocks": _enc_block_init(cfg, gen, device=device,
-                                      lead=(cfg.encoder_layers,)),
-        "dec_blocks": _dec_block_init(cfg, gen, device=device,
-                                      lead=(cfg.num_layers,)),
-        "pos_enc": L.embed_param(gen, table, device=device),
-        "pos_dec": L.embed_param(gen, table, device=device),
-        "norm_enc_final": L.norm_init(cfg, cfg.d_model, device=device),
-        "norm_dec_final": L.norm_init(cfg, cfg.d_model, device=device),
+        "enc_blocks": prepend_axis("layers", _enc_block_init(
+            cfg, gen, lead=(cfg.encoder_layers,), **kw)),
+        "dec_blocks": prepend_axis("layers", _dec_block_init(
+            cfg, gen, lead=(cfg.num_layers,), **kw)),
+        "pos_enc": L.embed_param(gen, table, table_axes, **kw),
+        "pos_dec": L.embed_param(gen, table, table_axes, **kw),
+        "norm_enc_final": L.norm_init(cfg, cfg.d_model, **kw),
+        "norm_dec_final": L.norm_init(cfg, cfg.d_model, **kw),
     }
 
 

@@ -6,6 +6,10 @@ Plain functions on tensors in the JAX package's layouts (activations
 each function is held against its twin in ``repro/models/layers.py``.
 Parameters are plain dicts of tensors; a ``lead`` shape prepends stacking
 axes (the stack's repeats axis) to every parameter an initialiser draws.
+With ``box=True`` each initialiser returns its parameters as ``Param``
+boxes carrying the logical axes its JAX twin gives them (without the
+stacking axes, which the stack prepends as ``"layers"``); on the ``meta``
+device it draws nothing and gives tensors of the shapes alone.
 
 Attention goes one step further than the JAX model, which never calls its
 Pallas kernels (its docstring names an ``attn_impl`` switch that does not
@@ -25,30 +29,36 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import Activation, ModelConfig, Norm, PosEmb
+from repro_torch.distributed.sharding import active_flag, boxed
 from repro_torch.kernels import ops
 
 ATTN_IMPLS = ("kernel", "plain")
 NEG_INF = -1e30
 
 # --------------------------------------------------------------------------
-# Initializers (drawn from an explicit torch.Generator on the target device)
+# Initializers (drawn from an explicit torch.Generator on the target device;
+# on the meta device, shapes alone: a torch.Generator has no meta device)
 # --------------------------------------------------------------------------
 
 
-def dense_param(gen: torch.Generator, shape, *, device, lead=(),
-                dtype=torch.bfloat16, fan_in: Optional[int] = None):
+def dense_param(gen: Optional[torch.Generator], shape, axes, *, device,
+                lead=(), dtype=torch.bfloat16, fan_in: Optional[int] = None,
+                box: bool = False):
+    if torch.device(device).type == "meta":
+        x = torch.empty((*lead, *shape), dtype=dtype, device=device)
+        return boxed(x, axes, box)
     fan = fan_in if fan_in is not None else shape[0]
     scale = 1.0 / math.sqrt(max(fan, 1))
     x = torch.randn((*lead, *shape), generator=gen, device=device,
                     dtype=torch.float32)
-    return x.mul_(scale).to(dtype)
+    return boxed(x.mul_(scale).to(dtype), axes, box)
 
 
-def embed_param(gen: torch.Generator, shape, *, device,
-                dtype=torch.bfloat16):
+def embed_param(gen: Optional[torch.Generator], shape, axes, *, device,
+                dtype=torch.bfloat16, box: bool = False):
     # std 1/sqrt(d_model): keeps tied-head logits O(1) at init
-    return dense_param(gen, shape, device=device, dtype=dtype,
-                       fan_in=shape[-1])
+    return dense_param(gen, shape, axes, device=device, dtype=dtype,
+                       fan_in=shape[-1], box=box)
 
 
 # --------------------------------------------------------------------------
@@ -56,12 +66,17 @@ def embed_param(gen: torch.Generator, shape, *, device,
 # --------------------------------------------------------------------------
 
 
-def norm_init(cfg: ModelConfig, d: int, *, device, lead=()) -> Dict:
+def norm_init(cfg: ModelConfig, d: int, *, device, lead=(),
+              box: bool = False) -> Dict:
+    ax = ("embed",)
     if cfg.norm == Norm.RMSNORM:
-        return {"scale": torch.ones((*lead, d), device=device)}
+        return {"scale": boxed(torch.ones((*lead, d), device=device), ax,
+                               box)}
     if cfg.norm == Norm.LAYERNORM:
-        return {"scale": torch.ones((*lead, d), device=device),
-                "bias": torch.zeros((*lead, d), device=device)}
+        return {"scale": boxed(torch.ones((*lead, d), device=device), ax,
+                               box),
+                "bias": boxed(torch.zeros((*lead, d), device=device), ax,
+                              box)}
     return {}  # NONPARAM_LN
 
 
@@ -153,15 +168,19 @@ def _softcap(x, cap: float):
     return torch.tanh(x / cap) * cap if cap > 0 else x
 
 
-def attention_params(cfg: ModelConfig, gen: torch.Generator, *, device,
-                     lead=()) -> Dict:
+def attention_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
+                     device, lead=(), box: bool = False) -> Dict:
     d, h, kvh, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    kw = dict(device=device, lead=lead, box=box)
     return {
-        "wq": dense_param(gen, (d, h, hd), device=device, lead=lead),
-        "wk": dense_param(gen, (d, kvh, hd), device=device, lead=lead),
-        "wv": dense_param(gen, (d, kvh, hd), device=device, lead=lead),
-        "wo": dense_param(gen, (h, hd, d), device=device, lead=lead,
-                          fan_in=h * hd),
+        "wq": dense_param(gen, (d, h, hd), ("embed", "heads", "head_dim"),
+                          **kw),
+        "wk": dense_param(gen, (d, kvh, hd),
+                          ("embed", "kv_heads", "head_dim"), **kw),
+        "wv": dense_param(gen, (d, kvh, hd),
+                          ("embed", "kv_heads", "head_dim"), **kw),
+        "wo": dense_param(gen, (h, hd, d), ("heads", "head_dim", "embed"),
+                          fan_in=h * hd, **kw),
     }
 
 
@@ -323,6 +342,12 @@ def kv_cache_init(cfg: ModelConfig, batch: int, max_len: int,
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
+def kv_cache_axes(is_ring: bool = False) -> Tuple[Optional[str], ...]:
+    # ring buffers (sliding window) are small; don't sequence-shard them.
+    seq = None if is_ring else "cache_seq"
+    return ("cache_batch", seq, "cache_kv_heads", "cache_head_dim")
+
+
 def _quantize_kv(x):
     """[B, T, H, D] -> int8 values + per-(b,t,h) fp32 scales (round half
     to even, as ``jnp.round``)."""
@@ -406,7 +431,10 @@ def attention_forward(cfg: ModelConfig, p: Dict, x, positions, *,
     kw = dict(causal=causal, scale=_attn_scale(cfg), window=window,
               softcap=cfg.attn_logit_softcap)
     if attn_impl == "plain":
-        out = blocked_attention(q, k, v, **kw)
+        # sequence-parallel layout: one q block spanning the (seq-sharded)
+        # length, as the JAX twin under the same flag
+        bq = q.shape[1] if active_flag("single_q_block") else 512
+        out = blocked_attention(q, k, v, block_q=bq, **kw)
     else:
         out = ops.flash_attention(q, k, v, **kw)
     if cache is not None:
@@ -478,14 +506,16 @@ def cross_kv(cfg: ModelConfig, p: Dict, enc_out):
 # --------------------------------------------------------------------------
 
 
-def mlp_params(cfg: ModelConfig, gen: torch.Generator, *, device, lead=(),
-               d: Optional[int] = None, f: Optional[int] = None) -> Dict:
+def mlp_params(cfg: ModelConfig, gen: Optional[torch.Generator], *, device,
+               lead=(), d: Optional[int] = None, f: Optional[int] = None,
+               box: bool = False) -> Dict:
     d = d or cfg.d_model
     f = f or cfg.d_ff
-    p = {"wi": dense_param(gen, (d, f), device=device, lead=lead),
-         "wo": dense_param(gen, (f, d), device=device, lead=lead, fan_in=f)}
+    kw = dict(device=device, lead=lead, box=box)
+    p = {"wi": dense_param(gen, (d, f), ("embed", "mlp"), **kw),
+         "wo": dense_param(gen, (f, d), ("mlp", "embed"), fan_in=f, **kw)}
     if cfg.activation in (Activation.SWIGLU, Activation.GEGLU):
-        p["wg"] = dense_param(gen, (d, f), device=device, lead=lead)
+        p["wg"] = dense_param(gen, (d, f), ("embed", "mlp"), **kw)
     return p
 
 

@@ -21,12 +21,13 @@ decode copy the new conv tail and state into the layer's cache views.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.sharding import boxed
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_param
 
@@ -39,27 +40,33 @@ def _dims(cfg: ModelConfig):
     return d_inner, nheads, conv_dim
 
 
-def mamba_params(cfg: ModelConfig, gen: torch.Generator, *, device,
-                 lead=()) -> Dict:
+def mamba_params(cfg: ModelConfig, gen: Optional[torch.Generator], *,
+                 device, lead=(), box: bool = False) -> Dict:
     s = cfg.ssm
     d = cfg.d_model
     d_inner, nheads, conv_dim = _dims(cfg)
     d_in_proj = 2 * d_inner + 2 * s.ngroups * s.state_dim + nheads
     f32 = dict(device=device, dtype=torch.float32)
+    kw = dict(device=device, lead=lead, box=box)
     # A init in [1, 16) (mamba2 default); dt_bias a constant, as the JAX twin
     a_init = torch.log(torch.linspace(1.0, 16.0, nheads, **f32))
     return {
-        "in_proj": dense_param(gen, (d, d_in_proj), device=device,
-                               lead=lead),
-        "conv_w": dense_param(gen, (s.conv_width, conv_dim), device=device,
-                              lead=lead, fan_in=s.conv_width),
-        "conv_b": torch.zeros((*lead, conv_dim), **f32),
-        "A_log": a_init.expand(*lead, nheads).clone(),
-        "D": torch.ones((*lead, nheads), **f32),
-        "dt_bias": torch.zeros((*lead, nheads), **f32),
-        "norm_scale": torch.ones((*lead, d_inner), **f32),
-        "out_proj": dense_param(gen, (d_inner, d), device=device, lead=lead,
-                                fan_in=d_inner),
+        "in_proj": dense_param(gen, (d, d_in_proj), ("embed", "ssm_inner"),
+                               **kw),
+        "conv_w": dense_param(gen, (s.conv_width, conv_dim),
+                              ("conv", "ssm_inner"), fan_in=s.conv_width,
+                              **kw),
+        "conv_b": boxed(torch.zeros((*lead, conv_dim), **f32),
+                        ("ssm_inner",), box),
+        "A_log": boxed(a_init.expand(*lead, nheads).clone(), ("ssm_heads",),
+                       box),
+        "D": boxed(torch.ones((*lead, nheads), **f32), ("ssm_heads",), box),
+        "dt_bias": boxed(torch.zeros((*lead, nheads), **f32),
+                         ("ssm_heads",), box),
+        "norm_scale": boxed(torch.ones((*lead, d_inner), **f32),
+                            ("ssm_inner",), box),
+        "out_proj": dense_param(gen, (d_inner, d), ("ssm_inner", "embed"),
+                                fan_in=d_inner, **kw),
     }
 
 
@@ -74,6 +81,11 @@ def mamba_cache_init(cfg: ModelConfig, batch: int, *, device,
         "ssm": torch.zeros((*lead, batch, nheads, s.head_dim, s.state_dim),
                            **f32),
     }
+
+
+def mamba_cache_axes() -> Dict[str, Tuple[Optional[str], ...]]:
+    return {"conv": ("cache_batch", None, "ssm_inner"),
+            "ssm": ("cache_batch", "ssm_heads", None, None)}
 
 
 # ----------------------------------------------------------------- SSD core

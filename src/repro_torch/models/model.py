@@ -6,6 +6,10 @@ encoder-decoder.
 (params, batch/cache), as in the JAX package:
 
     init(seed, device=)             -> param tree (plain dicts of tensors)
+    init_annotated(seed, device=)   -> the same tree, each leaf a ``Param``
+                                       boxed with its logical axes (the JAX
+                                       twin's ``init``); device="meta"
+                                       gives shapes alone
     forward(params, batch, remat=, dropless=)
                                     -> (hidden [B,S,d], aux) (teacher-forced)
     loss(params, batch, remat=)     -> (loss, {ce, aux, tokens}) (training)
@@ -15,6 +19,7 @@ encoder-decoder.
                                        block, conv/ssm state for a Mamba
                                        one; an encoder-decoder's stacked
                                        self K/V and its cross K/V)
+    cache_axes(max_len)             -> logical-axes tree for the cache
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
 
@@ -97,22 +102,36 @@ class Model:
     def init(self, seed: int = 0, *, device="cuda") -> Dict:
         """Random parameters drawn from one explicit ``torch.Generator``
         seeded with ``seed`` on ``device``."""
+        return self._init(seed, device, box=False)
+
+    def init_annotated(self, seed: int = 0, *, device="cuda") -> Dict:
+        """``init``'s tree with each parameter boxed as ``Param(value,
+        axes)``, the logical axes the JAX twin's ``init`` gives it (stacked
+        layers lead with ``"layers"``).  On ``device="meta"`` nothing is
+        drawn or allocated: the tree of shapes and axes of any arch at full
+        width, for the sharding rules."""
+        return self._init(seed, device, box=True)
+
+    def _init(self, seed: int, device, box: bool) -> Dict:
         cfg = self.cfg
-        dev = require_device(device)
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(seed)
+        dev = _device(device)
+        gen = None
+        if dev.type != "meta":
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(seed)
+        kw = dict(device=dev, box=box)
         params: Dict[str, Any] = {
             "embed": L.embed_param(gen, (cfg.vocab_size, cfg.d_model),
-                                   device=dev),
+                                   ("vocab", "embed"), **kw),
         }
         if cfg.is_encdec:
-            params["encdec"] = ED.encdec_init(cfg, gen, device=dev)
+            params["encdec"] = ED.encdec_init(cfg, gen, **kw)
         else:
-            params["blocks"] = T.stack_init(cfg, gen, device=dev)
-            params["norm_final"] = L.norm_init(cfg, cfg.d_model, device=dev)
+            params["blocks"] = T.stack_init(cfg, gen, **kw)
+            params["norm_final"] = L.norm_init(cfg, cfg.d_model, **kw)
         if not cfg.tie_embeddings:
             params["head"] = L.dense_param(gen, (cfg.d_model, cfg.vocab_size),
-                                           device=dev)
+                                           ("embed", "vocab"), **kw)
         return params
 
     # ------------------------------------------------------------- pieces
@@ -257,7 +276,7 @@ class Model:
         ``max_len`` slots with a leading layers axis, and bf16
         ``cross_k``/``cross_v`` [L, B, enc_len or max_len, KVH, D], which a
         prefill replaces with its encoder's own length."""
-        cfg, dev = self.cfg, require_device(device)
+        cfg, dev = self.cfg, _device(device)
         if not cfg.is_encdec:
             return T.stack_cache_init(cfg, batch, max_len, device=dev)
         shape = (cfg.num_layers, batch, enc_len or max_len,
@@ -268,6 +287,19 @@ class Model:
                                        device=dev),
                 "cross_v": torch.zeros(shape, dtype=torch.bfloat16,
                                        device=dev)}
+
+    def cache_axes(self, max_len: int):
+        """Logical axes of each leaf of ``init_cache(B, max_len)``."""
+        cfg = self.cfg
+        if cfg.is_encdec:
+            kv = ("layers",) + L.kv_cache_axes(False)
+            out = {"self": {"k": kv, "v": kv},
+                   "cross_k": kv, "cross_v": kv}
+            if cfg.kv_cache_dtype == "int8":
+                out["self"]["k_scale"] = kv[:-1]
+                out["self"]["v_scale"] = kv[:-1]
+            return out
+        return T.stack_cache_axes(cfg, max_len)
 
     # ------------------------------------------------------------ prefill
     @torch.inference_mode()
@@ -327,6 +359,13 @@ class Model:
                                      attn_impl=self.attn_impl)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         return self._logits(params, x[:, 0]), cache
+
+
+def _device(device) -> torch.device:
+    """``device`` as a ``torch.device``: ``meta`` (shapes alone), or a
+    device ``require_device`` accepts."""
+    dev = torch.device(device)
+    return dev if dev.type == "meta" else require_device(dev)
 
 
 def build_model(cfg: ModelConfig, *, attn_impl: str = "kernel") -> Model:

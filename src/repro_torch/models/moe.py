@@ -49,7 +49,7 @@ products as plain einsums, outside any Pallas kernel.
 from __future__ import annotations
 
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -58,22 +58,26 @@ from repro_torch.configs.base import Activation, ModelConfig
 from repro_torch.models import layers as L
 
 
-def moe_params(cfg: ModelConfig, gen: torch.Generator, *, device,
-               lead=()) -> Dict:
+def moe_params(cfg: ModelConfig, gen: Optional[torch.Generator], *, device,
+               lead=(), box: bool = False) -> Dict:
     """``router`` fp32 [d, E]; bf16 ``w_up``/``w_gate`` [E, d, f] and
     ``w_down`` [E, f, d].  As in the JAX twin, ``dense_param`` takes its fan
     from the shape's first axis, so ``w_up`` and ``w_gate`` are scaled by
     1/sqrt(E), ``w_down`` by 1/sqrt(f)."""
     assert cfg.moe is not None
     e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.d_ff
-    kw = dict(device=device, lead=lead)
+    kw = dict(device=device, lead=lead, box=box)
     p = {
-        "router": L.dense_param(gen, (d, e), dtype=torch.float32, **kw),
-        "w_up": L.dense_param(gen, (e, d, f), **kw),
-        "w_down": L.dense_param(gen, (e, f, d), fan_in=f, **kw),
+        "router": L.dense_param(gen, (d, e), ("embed", None),
+                                dtype=torch.float32, **kw),
+        "w_up": L.dense_param(gen, (e, d, f), ("expert", "embed", "mlp"),
+                              **kw),
+        "w_down": L.dense_param(gen, (e, f, d), ("expert", "mlp", "embed"),
+                                fan_in=f, **kw),
     }
     if cfg.activation in (Activation.SWIGLU, Activation.GEGLU):
-        p["w_gate"] = L.dense_param(gen, (e, d, f), **kw)
+        p["w_gate"] = L.dense_param(gen, (e, d, f), ("expert", "embed", "mlp"),
+                                    **kw)
     return p
 
 

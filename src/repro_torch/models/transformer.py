@@ -24,6 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.distributed.sharding import prepend_axis
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
@@ -95,8 +96,8 @@ def _unbind(tree: Dict, R: int) -> List[Dict]:
 
 
 def _block_init(cfg: ModelConfig, desc: BlockDesc, gen, R: int,
-                device) -> Dict:
-    kw = dict(device=device, lead=(R,))
+                device, box: bool = False) -> Dict:
+    kw = dict(device=device, lead=(R,), box=box)
     p = {"norm_mixer": L.norm_init(cfg, cfg.d_model, **kw)}
     if desc.mixer == "mamba":
         p["mamba"] = M.mamba_params(cfg, gen, **kw)
@@ -115,10 +116,13 @@ def _block_init(cfg: ModelConfig, desc: BlockDesc, gen, R: int,
     return p
 
 
-def stack_init(cfg: ModelConfig, gen, *, device) -> List[Dict]:
-    """One stacked (leading dim = repeats) param tree per pattern position."""
+def stack_init(cfg: ModelConfig, gen, *, device,
+               box: bool = False) -> List[Dict]:
+    """One stacked (leading dim = repeats) param tree per pattern position;
+    boxed, each parameter's axes start with ``"layers"``."""
     R = num_repeats(cfg)
-    return [_block_init(cfg, desc, gen, R, device)
+    return [prepend_axis("layers", _block_init(cfg, desc, gen, R, device,
+                                               box))
             for desc in block_pattern(cfg)]
 
 
@@ -130,6 +134,23 @@ def stack_cache_init(cfg: ModelConfig, batch: int, max_len: int, *,
     return [M.mamba_cache_init(cfg, batch, **kw) if desc.mixer == "mamba"
             else L.kv_cache_init(cfg, batch, max_len, desc.window, **kw)
             for desc in block_pattern(cfg)]
+
+
+def stack_cache_axes(cfg: ModelConfig, max_len: int) -> List[Dict]:
+    """Logical axes for each cache leaf (leading 'layers' dim)."""
+    axes = []
+    for desc in block_pattern(cfg):
+        if desc.mixer == "mamba":
+            a = {k: ("layers",) + v for k, v in M.mamba_cache_axes().items()}
+        else:
+            is_ring = desc.window > 0 and desc.window < max_len
+            kv = ("layers",) + L.kv_cache_axes(is_ring)
+            a = {"k": kv, "v": kv}
+            if cfg.kv_cache_dtype == "int8":
+                a["k_scale"] = kv[:-1]
+                a["v_scale"] = kv[:-1]
+        axes.append(a)
+    return axes
 
 
 # ------------------------------------------------------------------ forward

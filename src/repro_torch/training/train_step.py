@@ -1,4 +1,4 @@
-"""Training step: loss -> backward -> optional int8 fake-quant of the
+"""Training step: loss -> backward -> optional int8 compression of the
 gradients -> AdamW; the twin of ``repro/training/train_step.py``.
 
 The gradient comes from autograd over ``Model.loss``.  On the card every
@@ -15,6 +15,7 @@ import dataclasses
 import torch
 
 from repro_torch import tree as TR
+from repro_torch.distributed.collectives import compressed_allreduce
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
@@ -52,18 +53,30 @@ def loss_and_grads(model: Model, params, batch):
             TR.unflatten_like(params, grads))
 
 
-def make_train_step(model: Model, tcfg: TrainConfig):
+def make_train_step(model: Model, tcfg: TrainConfig, *, group=None):
     """Returns train_step(params, opt_state, batch) -> (params, state,
     metrics).  The parameters and moments are updated in place (see
-    ``training/optimizer.py``)."""
+    ``training/optimizer.py``).
+
+    With ``grad_compression="int8"`` and a data-parallel process ``group``
+    the gradients go through the int8-compressed all-reduce over it
+    (``distributed.collectives.compressed_allreduce``); without a group
+    the int8 fake-quant stands in for it, the same function at one rank.
+    A group without int8 compression is refused: the port has no other
+    gradient all-reduce."""
     if tcfg.grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression {tcfg.grad_compression!r} not "
                          f"in ('none', 'int8')")
+    if group is not None and tcfg.grad_compression != "int8":
+        raise ValueError("a data-parallel group needs grad_compression="
+                         "'int8' (the compressed all-reduce)")
+    compress = (quantize_dequantize_int8 if group is None
+                else compressed_allreduce(group))
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(model, params, batch)
         if tcfg.grad_compression == "int8":
-            grads = TR.map_tree(quantize_dequantize_int8, grads)
+            grads = TR.map_tree(compress, grads)
         params, opt_state, opt_metrics = adamw_update(
             tcfg.opt, grads, opt_state, params)
         metrics = dict(metrics, loss=loss, **opt_metrics)
@@ -77,6 +90,6 @@ def init_train_state(model: Model, tcfg: TrainConfig, seed: int = 0, *,
     """(params, opt_state): ``model.init(seed)`` on ``device`` and AdamW's
     zero state beside it (``loss_and_grads`` makes each parameter a leaf
     that requires grad).  The JAX twin also returns the annotated tree of
-    its sharding axes; the port has no sharding yet."""
+    its sharding axes; here ``model.init_annotated`` gives that tree."""
     params = model.init(seed, device=device)
     return params, adamw_init(tcfg.opt, params)

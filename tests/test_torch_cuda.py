@@ -1725,3 +1725,125 @@ def test_reduced_moe_and_encdec_training_step_kernel_path_matches_plain_path(
         a, b = a.float().flatten(), b.float().flatten()
         cos = float(a @ b / (a.norm() * b.norm()))
         assert cos > min_cos, (path, cos)
+
+
+# ------------------------------------------------- the distributed layer
+@pytest.fixture
+def nccl_world(cuda):
+    """A NCCL process group of one rank (a HashStore: no port), destroyed
+    after the test."""
+    import torch.distributed as dist
+    torch.cuda.set_device(0)        # the mesh's communicators' device
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    try:
+        yield dist
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_nccl_compressed_allreduce_at_one_rank_is_the_int8_fake_quant(
+        nccl_world):
+    """At one rank the compressed all-reduce and the int8 fake-quant
+    compute the same function: the same bits, both dtypes, every shape."""
+    from repro_torch.distributed.collectives import compressed_allreduce
+    from repro_torch.training import quantize_dequantize_int8
+    reduce = compressed_allreduce(nccl_world.group.WORLD)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for shape in ((7,), (33, 65), (4, 2048, 129)):
+        for dtype in (torch.float32, torch.bfloat16):
+            g = (torch.randn(shape, generator=gen, device="cuda")
+                 * 3e-3).to(dtype)
+            got, want = reduce(g), quantize_dequantize_int8(g)
+            assert got.dtype == dtype and torch.equal(got, want), \
+                (shape, dtype)
+
+
+@pytest.mark.cuda
+def test_placements_on_a_one_by_one_cuda_mesh(nccl_world):
+    """olmo-1b .reduced() laid out by the train rules on the 1 x 1 (data,
+    model) mesh: each local shard is the whole parameter; the production
+    mesh needs 256 ranks and refuses one."""
+    from torch.distributed.tensor import DTensor, Shard
+    from repro_torch import tree as TR
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.distributed.sharding import (make_rules,
+                                                  make_shardings)
+    from repro_torch.launch.mesh import (make_mesh_from_config,
+                                         make_production_mesh)
+    from repro_torch.models import build_model
+    mcfg = MeshConfig((1, 1), ("data", "model"))
+    mesh = make_mesh_from_config(mcfg)
+    assert mesh.device_type == "cuda"
+    cfg = get_config("olmo-1b").reduced()
+    ann = build_model(cfg).init_annotated(0, device="cuda")
+    shardings = make_shardings(mesh, make_rules(cfg, mcfg, "train"), ann)
+    sharded = 0
+    for p, s in zip(TR.leaves(ann), TR.leaves(shardings)):
+        d = s.distribute(p.value)
+        assert isinstance(d, DTensor) and d.device_mesh is mesh
+        assert torch.equal(d.to_local(), p.value)
+        sharded += any(isinstance(pl, Shard) for pl in d.placements)
+    assert sharded > 0
+    with pytest.raises(RuntimeError, match="256 ranks"):
+        make_production_mesh()
+
+
+@pytest.mark.cuda
+def test_run_with_restarts_on_the_card_ends_bit_for_bit(nccl_world,
+                                                        tmp_path):
+    """olmo-1b .reduced() on the kernel path (flash and its backward), its
+    gradients through the compressed all-reduce, six steps under
+    run_with_restarts with a failure after step 1 has written into the
+    state and one before step 4: the final state equals an uninterrupted
+    run's bit for bit."""
+    from repro_torch import tree as TR
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault_tolerance import (InjectedFailure,
+                                                         run_with_restarts)
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, TrainConfig,
+                                      init_train_state, make_batch,
+                                      make_train_step)
+    cfg = get_config("olmo-1b").reduced()
+    model = build_model(cfg)
+    tcfg = TrainConfig(opt=AdamWConfig(lr=1e-3, warmup_steps=2,
+                                       total_steps=6),
+                       grad_compression="int8")
+    step = make_train_step(model, tcfg, group=nccl_world.group.WORLD)
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in
+                make_batch(cfg, 2, 256, step=i).items()} for i in range(6)]
+
+    def fresh():
+        params, opt = init_train_state(model, tcfg, 0, device="cuda")
+        return {"params": params, "opt": opt}
+
+    clean = fresh()
+    for i in range(6):
+        p, o, _ = step(clean["params"], clean["opt"], batches[i])
+        clean = {"params": p, "opt": o}
+    pending = {"after": {1}, "before": {4}}
+
+    def step_fn(i, state):
+        if i in pending["before"]:
+            pending["before"].discard(i)
+            raise InjectedFailure(f"before {i}")
+        p, o, _ = step(state["params"], state["opt"], batches[i])
+        if i in pending["after"]:
+            pending["after"].discard(i)
+            raise InjectedFailure(f"after {i}")
+        return {"params": p, "opt": o}
+
+    ops.reset_launch_counts()
+    out = run_with_restarts(6, step_fn, fresh(),
+                            Checkpointer(str(tmp_path), keep=2),
+                            save_every=2)
+    torch.cuda.synchronize()
+    assert ops.launch_counts()["flash_attention_bwd"] == \
+        cfg.num_layers * 8              # eight step executions
+    for (path, a), (_, b) in zip(TR.flatten_with_paths(out),
+                                 TR.flatten_with_paths(clean)):
+        assert a.dtype == b.dtype and torch.equal(a, b), path
