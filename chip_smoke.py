@@ -150,8 +150,9 @@ HashStore: no port) and the 1 x 1 (data, model) DeviceMesh on the card:
             bytes a rank would send at 2, 4 and 16 ranks beside a bf16
             ring all-reduce's; then olmo-1b at full layer width cut to 2
             of its 16 layers (237,240,320 parameters): 6 steps of the
-            launcher's train step, its gradients through the compressed
-            all-reduce, under run_with_restarts (save every 2, keep 2, in
+            launcher's train step, its gradients averaged over the group
+            and then fake-quantized to int8, under run_with_restarts
+            (save every 2, keep 2, in
             a temporary directory it removes), one failure raised after
             step 1 has updated the state in place and one before step 4,
             the launch counters reset just before and read just after
@@ -160,7 +161,21 @@ HashStore: no port) and the 1 x 1 (data, model) DeviceMesh on the card:
             uninterrupted run's from the same seed bit for bit; the steps
             re-executed, each step's time, each save's and restore's
             seconds and GB/s.
-8. report   one ``{"kernels": [...]}`` line, then the card line, then
+8. dryrun   the dry-run (``repro_torch.launch.dryrun``), shape-only on
+            ``meta`` shards over fake process groups, in subprocesses run
+            side by side (started beside the build, awaited before the
+            first timed phase): olmo-1b at full width and the train phase's
+            shape (4 x 2048, remat) on a 1 x 1 mesh, its predicted
+            parameter and AdamW-state bytes equal to the real trees' bytes
+            exactly, its argument bytes, FLOPs and bytes positive, and one
+            ``dryrun calibration:`` line of its predicted peak bytes,
+            FLOPs and roofline times beside the train phase's measured
+            peak memory, model FLOPs and step time; then the cells
+            DRYRUN_CELLS on the 256- and 512-rank production meshes, each
+            of which must complete (per-rank GB and whether they fit 80
+            GB, FLOPs, collective bytes by type, roofline terms and trace
+            seconds, a line each), and the phase's seconds.
+9. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
 from __future__ import annotations
@@ -341,8 +356,8 @@ DIST_ITERS = 5
 # restarts: olmo-1b at full layer width cut to 2 of its 16 layers (10
 # bytes a parameter of training state, 2.37 GB a checkpoint; the whole
 # model's 11.8 GB, written several times over, does not belong in a smoke
-# run), the launcher's train step through the compressed all-reduce,
-# RESTART_STEPS steps under run_with_restarts, saving every
+# run), the launcher's train step (gradients averaged over the group,
+# then fake-quantized to int8), RESTART_STEPS steps under run_with_restarts, saving every
 # RESTART_SAVE_EVERY steps and keeping RESTART_KEEP; one failure raised
 # after step 1 has updated the state in place (before the first save: the
 # restart reads back the step-0 checkpoint) and one before step 4 runs
@@ -353,6 +368,15 @@ RESTART_SAVE_EVERY = 2
 RESTART_KEEP = 2
 RESTART_FAIL_AFTER = (1,)
 RESTART_FAIL_BEFORE = (4,)
+# the dry-run: olmo-1b's train phase (TRAIN_B x TRAIN_S, remat) traced on a
+# 1 x 1 mesh against the real step's trees, memory and time; then three
+# production cells (arch, shape, mesh), traced on one rank of a fake group
+# of 256 (single) or 512 (multi) ranks; each process's time limit
+DRYRUN_CALIBRATION = "olmo-1b"
+DRYRUN_CELLS = (("olmo-1b", "train_4k", "single"),
+                ("mixtral-8x7b", "prefill_32k", "single"),
+                ("jamba-1.5-large-398b", "long_500k", "multi"))
+DRYRUN_TIMEOUT_S = 400
 
 
 class SmokeFailure(RuntimeError):
@@ -2655,8 +2679,11 @@ def run_train(arch: str, seed: int):
     TRAIN_CHECK_LAYERS layers where set), then TRAIN_STEPS steps of the
     launcher's train step (the main path: counters reset just before, read
     just after), each timed on the host clock; then one more step traced.
-    Returns the run's launch counts and counts by kind (with flash's and
-    its backward's launches not causal)."""
+    Returns the run's launch counts, counts by kind (with flash's and its
+    backward's launches not causal) and what the dry-run's calibration
+    holds its prediction against: the parameters' and the AdamW state's
+    bytes, the peak memory, the median step's milliseconds and the model
+    FLOPs of a step."""
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as FA
@@ -2697,6 +2724,9 @@ def run_train(arch: str, seed: int):
     t0 = time.monotonic()
     params, opt = init_train_state(model, tcfg, seed, device="cuda")
     n_params = sum(t.numel() for t in TR.leaves(params))
+    nbytes = lambda tree: sum(t.numel() * t.element_size()  # noqa
+                              for t in TR.leaves(tree))
+    stats = {"param_bytes": nbytes(params), "opt_state_bytes": nbytes(opt)}
     print(f"[train] {cfg.name} {cut_label(published, cfg)}, {n_params} "
           f"parameters, {layers}, d_model {cfg.d_model}, {mixer}, "
           f"remat={cfg.remat}, batch {TRAIN_B} x {TRAIN_S} tokens, AdamW "
@@ -2757,7 +2787,8 @@ def run_train(arch: str, seed: int):
     del params, opt, batches, m
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, kinds
+    stats.update(peak=peak, step_ms=median, model_flops=model_flops)
+    return counts, kinds, stats
 
 
 def check_layout(mesh, mcfg, cfg, seed: int):
@@ -2814,7 +2845,9 @@ def check_allreduce(group, grads) -> None:
     ms = time_ms(lambda: [reduce(g) for g in leaves], DIST_ITERS, warmup=1)
     qdq_ms = time_ms(lambda: [quantize_dequantize_int8(g) for g in leaves],
                      DIST_ITERS, warmup=1)
-    bufs = [g.clone() for g in leaves]
+    # NCCL reduces contiguous buffers alone (the tied head's gradient
+    # arrives transposed)
+    bufs = [g.clone(memory_format=torch.contiguous_format) for g in leaves]
     nccl_ms = time_ms(lambda: [dist.all_reduce(b, group=group)
                                for b in bufs], DIST_ITERS, warmup=1)
     del bufs
@@ -3004,6 +3037,113 @@ def run_distributed(seed: int):
         dist.destroy_process_group()
 
 
+# the calibration's child: olmo-1b's train phase shape on a 1 x 1 mesh over
+# a fake group of one rank, its info (with the roofline) as JSON
+DRYRUN_CALIBRATE = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.configs.base import MeshConfig, ShapeConfig, ShapeKind
+from repro_torch.launch import dryrun as DR
+arch, batch, seq, path = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), \
+    sys.argv[4]
+cfg = get_config(arch)
+info = DR.trace_cell(cfg, ShapeConfig("calibration", seq, batch,
+                                      ShapeKind.TRAIN),
+                     MeshConfig((1, 1), ("data", "model")))
+info.update(arch=arch, shape="calibration", chips=1, kind="train",
+            kv_cache_dtype=cfg.kv_cache_dtype,
+            active_params_b=cfg.active_param_count())
+info["roofline"] = DR.roofline_terms(info)
+json.dump(info, open(path, "w"))
+"""
+
+
+def start_dryrun():
+    """Start the dry-run's children: the calibration and one child a cell
+    of DRYRUN_CELLS (``python -m repro_torch.launch.dryrun``), each on its
+    own fake process group and on no device (CPU alone, beside the
+    kernels' build).  Returns (their Popens by name, the start time)."""
+    out = os.path.join(ROOT, "build", "dryrun")
+    os.makedirs(out, exist_ok=True)
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    jobs = {"calibration": [sys.executable, "-c", DRYRUN_CALIBRATE,
+                            DRYRUN_CALIBRATION, str(TRAIN_B), str(TRAIN_S),
+                            os.path.join(out, "calibration.json")]}
+    for arch, shape, mesh in DRYRUN_CELLS:
+        jobs[f"{arch} x {shape} x {mesh}"] = [
+            sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+            arch, "--shape", shape, "--mesh", mesh, "--outdir", out]
+    return {name: subprocess.Popen(cmd, env=env, cwd=ROOT,
+                                   stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True)
+            for name, cmd in jobs.items()}, time.monotonic()
+
+
+def stop(procs) -> None:
+    for proc in procs.values():
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def wait_dryrun(started) -> float:
+    """Wait for every child (before any timed phase, so none shares the
+    host with one); each must exit 0.  Returns the children's seconds."""
+    procs, t0 = started
+    logs = {}
+    try:
+        for name, proc in procs.items():
+            logs[name] = proc.communicate(timeout=DRYRUN_TIMEOUT_S)[0]
+    finally:
+        stop(procs)
+    for name, proc in procs.items():
+        require(proc.returncode == 0, f"dryrun {name}: exit "
+                f"{proc.returncode}\n{logs.get(name, '')[-3000:]}")
+    return time.monotonic() - t0
+
+
+def report_dryrun(seconds: float, real) -> None:
+    """The dry-run phase's gates and lines: the calibration against the
+    train phase's olmo-1b (``real``: ``run_train``'s stats), then each
+    cell."""
+    from repro_torch.launch import dryrun as DR
+    out = os.path.join(ROOT, "build", "dryrun")
+    info = json.load(open(os.path.join(out, "calibration.json")))
+    require(info["param_bytes"] == real["param_bytes"],
+            f"dryrun calibration: {info['param_bytes']} parameter bytes "
+            f"predicted, the real tree holds {real['param_bytes']}")
+    require(info["opt_state_bytes"] == real["opt_state_bytes"],
+            f"dryrun calibration: {info['opt_state_bytes']} AdamW-state "
+            f"bytes predicted, the real tree holds "
+            f"{real['opt_state_bytes']}")
+    require(info["mem_argument_bytes"] > 0 and info["hlo_flops"] > 0
+            and info["hlo_bytes"] > 0,
+            f"dryrun calibration: {info}")
+    roof = info["roofline"]
+    step_s = real["step_ms"] * 1e-3
+    peak = DR.per_rank_bytes(info)
+    print(f"dryrun calibration: {DRYRUN_CALIBRATION} {TRAIN_B} x {TRAIN_S} "
+          f"train, 1 x 1 mesh: parameters {info['param_bytes']} and AdamW "
+          f"state {info['opt_state_bytes']} bytes, both equal to the real "
+          f"trees'; peak {peak} bytes predicted against "
+          f"max_memory_allocated {real['peak']} ({peak / real['peak']!r}); "
+          f"FLOPs {info['hlo_flops']!r} predicted against the model FLOPs "
+          f"{real['model_flops']!r} (remat not counted; excess "
+          f"{info['hlo_flops'] - real['model_flops']!r}); roofline at the "
+          f"H100's peaks: compute {roof['t_compute_s']!r} s, memory "
+          f"{roof['t_memory_s']!r} s (no fusion; {roof['t_memory_lb_s']!r} "
+          f"s with ideal fusion) against the measured step "
+          f"{step_s!r} s: compute {roof['t_compute_s'] / step_s!r} of it, "
+          f"memory {roof['t_memory_s'] / step_s!r}; traced in "
+          f"{info['compile_s']} s")
+    for arch, shape, mesh in DRYRUN_CELLS:
+        cell = json.load(open(os.path.join(out, f"{arch}__{shape}__{mesh}"
+                                                ".json")))
+        print(f"dryrun cell: {DR.cell_line(cell)}")
+    print(f"[dryrun] {1 + len(DRYRUN_CELLS)} processes side by side, "
+          f"beside the build, in {seconds:.1f} s")
+
+
 def count_launches(kernels, launches, by_model, kinds_by_model,
                    trains) -> None:
     """Write into each entry of the kernels line its launches on the main
@@ -3070,12 +3210,19 @@ def main() -> int:
           f"cuda {torch.version.cuda})")
     print(card)
 
-    # 2. build
+    # 2. build, the dry-run's children beside it (CPU alone)
+    dryrun = start_dryrun()
     t0 = time.monotonic()
-    lib_path = build.build()
-    build.load()
-    print(f"[build] {lib_path.relative_to(ROOT)} in "
-          f"{time.monotonic() - t0:.1f} s")
+    try:
+        lib_path = build.build()
+        build.load()
+        print(f"[build] {lib_path.relative_to(ROOT)} in "
+              f"{time.monotonic() - t0:.1f} s")
+        dryrun_s = wait_dryrun(dryrun)
+    finally:
+        stop(dryrun[0])
+    print(f"  (the dry-run's children done "
+          f"{time.monotonic() - t_start:.1f} s into the run)")
     kernel, serialised = "", 0
     for line in (lib_path.parent / "ptxas.log").read_text().splitlines():
         if "Compiling entry" in line:
@@ -3225,8 +3372,10 @@ def main() -> int:
     # seamless-m4t-medium (its encoder in fp32), the forward and backward
     # kernels
     trains = [f"{arch} training" for arch in TRAIN_PARAMS]
+    measured = {}
     for arch, train in zip(TRAIN_PARAMS, trains):
-        by_model[train], kinds_by_model[train] = run_train(arch, args.seed)
+        by_model[train], kinds_by_model[train], measured[arch] = run_train(
+            arch, args.seed)
         for name, n in by_model[train].items():
             launches[name] += n
         print(f"  ({train} done {time.monotonic() - t_start:.1f} s into the "
@@ -3254,7 +3403,11 @@ def main() -> int:
     print(f"  (distributed done {time.monotonic() - t_start:.1f} s into the "
           f"run)")
 
-    # 8. report
+    # 8. the dry-run (its children ran beside the build): the calibration
+    # against the train phase's olmo-1b, then the production cells
+    report_dryrun(dryrun_s, measured[DRYRUN_CALIBRATION])
+
+    # 9. report
     count_launches(kernels, launches, by_model, kinds_by_model, trains)
     print(f"[report] the run took {time.monotonic() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))

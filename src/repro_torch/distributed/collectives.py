@@ -50,7 +50,7 @@ def compressed_allreduce(group=None):
     shape; every rank gets the same bits."""
     def fn(g):
         n = dist.get_world_size(group)
-        q, scale = _quant(g)
+        q, scale = _quant(g.contiguous())   # NCCL gathers contiguous ones
         scale = scale.reshape(1)
         qs = [torch.empty_like(q) for _ in range(n)]
         scales = [torch.empty_like(scale) for _ in range(n)]

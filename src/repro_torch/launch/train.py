@@ -24,9 +24,10 @@ fit one card; ``chip_smoke.py`` trains mixtral-8x7b cut to 2 of its 32
 layers.  The port's distributed layer stands beside it:
 ``distributed.sharding`` lays a model's annotated parameters
 (``Model.init_annotated``) out over a ``DeviceMesh`` (``launch/mesh.py``),
-``make_train_step(..., group=)`` reduces the gradients through the
-int8-compressed all-reduce, and ``distributed.fault_tolerance
-.run_with_restarts`` drives a train step through failures.
+``make_train_step(..., group=)`` averages the ranks' gradients before the
+int8 fake-quant, as the JAX twin's sharded step does, and
+``distributed.fault_tolerance.run_with_restarts`` drives a train step
+through failures.
 """
 from __future__ import annotations
 

@@ -30,7 +30,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import prepend_axis
+from repro_torch.distributed.sharding import prepend_axis, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models.transformer import _layer, _unbind
 
@@ -104,7 +104,8 @@ def encode(cfg: ModelConfig, params: Dict, src_embeds, *,
                                      attn_impl=attn_impl)
         x = x + mix
         h = L.apply_norm(cfg, p["norm_ffn"], x)
-        return x + L.apply_mlp(cfg, p["mlp"], h)
+        x = x + L.apply_mlp(cfg, p["mlp"], h)
+        return shard_act(x, "batch", "act_seq", "act_embed")
 
     x = _layers(step, x, cfg.encoder_layers, remat)
     return L.apply_norm(cfg, params["norm_enc_final"], x)
@@ -143,7 +144,8 @@ def decode_forward(cfg: ModelConfig, params: Dict, x, cross: Dict, *,
                                           cross_k[r], cross_v[r],
                                           attn_impl=attn_impl)
         h = L.apply_norm(cfg, p["norm_ffn"], x)
-        return x + L.apply_mlp(cfg, p["mlp"], h)
+        x = x + L.apply_mlp(cfg, p["mlp"], h)
+        return shard_act(x, "batch", "act_seq", "act_embed")
 
     x = _layers(step, x, cfg.num_layers, remat)
     return L.apply_norm(cfg, params["norm_dec_final"], x), self_caches

@@ -27,9 +27,13 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Activation, ModelConfig, Norm, PosEmb
-from repro_torch.distributed.sharding import active_flag, boxed
+from repro_torch.distributed.sharding import (active_flag, attend_per_rank,
+                                              boxed, einsum_per_rank,
+                                              put_prefix, put_rows,
+                                              shard_act)
 from repro_torch.kernels import ops
 
 ATTN_IMPLS = ("kernel", "plain")
@@ -198,7 +202,7 @@ def project(eq: str, x, w):
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return torch.einsum(eq, x, w)
+    return einsum_per_rank(eq, x, w)
 
 
 def widened(attend, q, k, v, **kw):
@@ -207,11 +211,12 @@ def widened(attend, q, k, v, **kw):
     encoder's K/V is one fp32 call on an exact upcast of q, its output
     rounded to bf16, as the JAX twin's ``blocked_attention`` (whose
     einsums promote, and which returns q's dtype).  The kernels take one
-    dtype."""
+    dtype.  Each rank attends its own rows and heads (``attend_per_rank``)."""
     if q.dtype == k.dtype:
-        return attend(q, k, v, **kw)
+        return attend_per_rank(attend, q, k, v, **kw)
     dt = torch.promote_types(q.dtype, k.dtype)
-    return attend(q.to(dt), k.to(dt), v.to(dt), **kw).to(q.dtype)
+    return attend_per_rank(attend, q.to(dt), k.to(dt), v.to(dt),
+                           **kw).to(q.dtype)
 
 
 def blocked_attention(q, k, v, *, causal: bool, scale: float,
@@ -220,6 +225,10 @@ def blocked_attention(q, k, v, *, causal: bool, scale: float,
                       block_kv: int = 1024):
     """Online softmax over KV blocks inside a loop over Q blocks (the twin
     of the JAX model's attention; a loop stands in for its ``lax.scan``).
+    Under autograd each q block, and each kv block inside it, is
+    checkpointed, as the JAX twin's ``jax.checkpoint``s are: the backward
+    recomputes a block's scores rather than keep its [bq, bk] fp32
+    probabilities (flash attention's memory).
 
     q: [B, Sq, H, D]; k, v: [B, Skv, KVH, D] with GQA (H % KVH == 0).
     q_positions: [B, Sq] absolute query positions (default arange).
@@ -234,39 +243,49 @@ def blocked_attention(q, k, v, *, causal: bool, scale: float,
         q_positions = torch.arange(Sq, device=dev)[None].expand(B, Sq)
     if kv_lengths is None:
         kv_lengths = torch.full((B,), Skv, device=dev)
-    qr = q.reshape(B, Sq, KVH, G, D)
-    out = torch.empty_like(q)
-    for q0 in range(0, Sq, block_q):
-        q_i = qr[:, q0:q0 + block_q].float()            # [B, bq, KVH, G, D]
-        pos_i = q_positions[:, q0:q0 + block_q]          # [B, bq]
+    remat = torch.is_grad_enabled()
+
+    def kv_block(m, lse, o, q_i, pos_i, k_j, v_j, k0: int):
+        pos_j = torch.arange(k0, k0 + k_j.shape[1], device=dev)
+        s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j.float()) * scale
+        s = _softcap(s, softcap)
+        valid = pos_j[None, None, :] < kv_lengths[:, None, None]
+        if causal:
+            valid = valid & (pos_j[None, None, :] <= pos_i[:, :, None])
+        if window > 0:
+            valid = valid & (pos_j[None, None, :]
+                             > pos_i[:, :, None] - window)
+        s = torch.where(valid[:, None, None], s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        lse = lse * corr + p.sum(-1)
+        # the JAX twin rounds p to v's dtype before the PV product
+        o = o * corr[..., None] + torch.einsum(
+            "bhgqk,bkhd->bhgqd", p.to(v_j.dtype).float(), v_j.float())
+        return m_new, lse, o
+
+    def q_block(q_i, pos_i):
         bq = q_i.shape[1]
         m = torch.full((B, KVH, G, bq), NEG_INF, device=dev)
         lse = torch.zeros((B, KVH, G, bq), device=dev)
         o = torch.zeros((B, KVH, G, bq, D), device=dev)
         for k0 in range(0, Skv, block_kv):
-            k_j = k[:, k0:k0 + block_kv]
-            v_j = v[:, k0:k0 + block_kv]
-            pos_j = torch.arange(k0, k0 + k_j.shape[1], device=dev)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", q_i, k_j.float()) * scale
-            s = _softcap(s, softcap)
-            valid = pos_j[None, None, :] < kv_lengths[:, None, None]
-            if causal:
-                valid = valid & (pos_j[None, None, :] <= pos_i[:, :, None])
-            if window > 0:
-                valid = valid & (pos_j[None, None, :]
-                                 > pos_i[:, :, None] - window)
-            s = torch.where(valid[:, None, None], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            lse = lse * corr + p.sum(-1)
-            # the JAX twin rounds p to v's dtype before the PV product
-            o = o * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p.to(v_j.dtype).float(), v_j.float())
-            m = m_new
+            args = (m, lse, o, q_i, pos_i, k[:, k0:k0 + block_kv],
+                    v[:, k0:k0 + block_kv], k0)
+            m, lse, o = (checkpoint(kv_block, *args, use_reentrant=False)
+                         if remat else kv_block(*args))
         blk = (o / torch.clamp_min(lse, 1e-30)[..., None]).to(q.dtype)
-        out[:, q0:q0 + bq] = blk.permute(0, 3, 1, 2, 4).reshape(B, bq, H, D)
-    return out
+        return blk.permute(0, 3, 1, 2, 4).reshape(B, bq, H, D)
+
+    qr = q.reshape(B, Sq, KVH, G, D)
+    out = []
+    for q0 in range(0, Sq, block_q):
+        args = (qr[:, q0:q0 + block_q].float(),          # [B, bq, KVH, G, D]
+                q_positions[:, q0:q0 + block_q])         # [B, bq]
+        out.append(checkpoint(q_block, *args, use_reentrant=False)
+                   if remat else q_block(*args))
+    return torch.cat(out, dim=1)
 
 
 def decode_attention(q, k_cache, v_cache, *, scale: float, lengths,
@@ -277,20 +296,44 @@ def decode_attention(q, k_cache, v_cache, *, scale: float, lengths,
     the token just written).  Window masks to the last `window` positions.
     """
     B, _, H, D = q.shape
-    _, T, KVH, _ = k_cache.shape
-    G = H // KVH
-    qr = q.reshape(B, KVH, G, D)
-    s = torch.einsum("bhgd,bthd->bhgt", qr.float(), k_cache.float()) * scale
-    s = _softcap(s, softcap)
-    pos = torch.arange(T, device=q.device)[None]             # [1, T]
-    valid = pos < lengths[:, None]
-    if window > 0:
-        valid = valid & (pos > (lengths[:, None] - 1 - window))
-    s = torch.where(valid[:, None, None, :], s, NEG_INF)
+    s = _decode_scores(q, k_cache, scale=scale, lengths=lengths,
+                       window=window, softcap=softcap)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
                      v_cache.float())
     return o.reshape(B, 1, H, D).to(q.dtype)
+
+
+def _decode_scores(q, k_cache, *, scale: float, lengths, window: int,
+                   softcap: float, t0: int = 0):
+    """Masked fp32 scores [B, KVH, G, T] of one query token over cache
+    slots t0 .. t0 + T - 1."""
+    B, _, H, D = q.shape
+    _, T, KVH, _ = k_cache.shape
+    qr = q.reshape(B, KVH, H // KVH, D)
+    s = torch.einsum("bhgd,bthd->bhgt", qr.float(), k_cache.float()) * scale
+    s = _softcap(s, softcap)
+    pos = torch.arange(t0, t0 + T, device=q.device)[None]    # [1, T]
+    valid = pos < lengths[:, None]
+    if window > 0:
+        valid = valid & (pos > (lengths[:, None] - 1 - window))
+    return torch.where(valid[:, None, None, :], s, NEG_INF)
+
+
+def decode_attention_part(q, k_cache, v_cache, *, t0: int, scale: float,
+                          lengths, window: int = 0, softcap: float = 0.0):
+    """``decode_attention`` over the cache's slots t0 .. t0 + T - 1 alone:
+    (its output there, fp32 [B, 1, H, D], and the scores' log-sum-exp
+    [B, H]), which blocks of a cache split along T combine (flash
+    decoding: ``attend_per_rank``)."""
+    B, _, H, D = q.shape
+    s = _decode_scores(q, k_cache, scale=scale, lengths=lengths,
+                       window=window, softcap=softcap, t0=t0)
+    lse = torch.logsumexp(s, dim=-1)
+    p = torch.exp(s - lse[..., None])
+    o = torch.einsum("bhgt,bthd->bhgd", p.to(v_cache.dtype).float(),
+                     v_cache.float())
+    return o.reshape(B, 1, H, D), lse.reshape(B, H)
 
 
 def page_size(T: int) -> int:
@@ -369,27 +412,16 @@ def kv_read(cache: Dict, dtype=torch.bfloat16
     return cache["k"], cache["v"]
 
 
-def _put(cache: Dict, name: str, x, index) -> None:
-    """Write ``x`` into ``cache[name][index]`` in place; an int8 cache
-    takes its quantized values and their scales."""
-    if "k_scale" in cache:
-        x, scale = _quantize_kv(x)
-        cache[f"{name}_scale"][index] = scale
-    cache[name][index] = x.to(cache[name].dtype)
-
-
 def kv_write_prefill(cache: Dict, k, v) -> Dict:
     """Write a full prompt's K/V.  k/v: [B, S, KVH, D] (post-RoPE).  A
     prompt at least as long as the cache keeps its last T positions,
-    ring-aligned, as the JAX twin does (quantized after the roll)."""
-    S = k.shape[1]
-    T = cache["k"].shape[1]
+    ring-aligned, as the JAX twin does; an int8 cache takes the quantized
+    values and their per-position scales (``put_prefix``)."""
     for name, x in (("k", k), ("v", v)):
-        if S >= T:
-            _put(cache, name, torch.roll(x[:, S - T:], S % T, dims=1),
-                 slice(None))
-        else:
-            _put(cache, name, x, (slice(None), slice(0, S)))
+        if "k_scale" in cache:
+            x, scale = _quantize_kv(x)
+            put_prefix(cache[f"{name}_scale"], scale)
+        put_prefix(cache[name], x.to(cache[name].dtype))
     return cache
 
 
@@ -398,9 +430,11 @@ def kv_write_decode(cache: Dict, k, v, lengths) -> Dict:
     k/v: [B, 1, KVH, D]; lengths: [B] (length BEFORE this token)."""
     T = cache["k"].shape[1]
     slots = (lengths % T).long()
-    bidx = torch.arange(k.shape[0], device=k.device)
-    _put(cache, "k", k[:, 0], (bidx, slots))
-    _put(cache, "v", v[:, 0], (bidx, slots))
+    for name, x in (("k", k[:, 0]), ("v", v[:, 0])):
+        if "k_scale" in cache:
+            x, scale = _quantize_kv(x)
+            put_rows(cache[f"{name}_scale"], slots, scale)
+        put_rows(cache[name], slots, x.to(cache[name].dtype))
     return cache
 
 
@@ -409,14 +443,15 @@ def kv_write_decode(cache: Dict, k, v, lengths) -> Dict:
 # --------------------------------------------------------------------------
 
 
-def _qkv(cfg: ModelConfig, p: Dict, x, cos, sin):
-    q = project("bsd,dhk->bshk", x, p["wq"])
-    k = project("bsd,dhk->bshk", x, p["wk"])
-    v = project("bsd,dhk->bshk", x, p["wv"])
-    if cos is not None:
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-    return q, k, v
+def _qkv(p: Dict, x):
+    return tuple(project("bsd,dhk->bshk", x, p[w]) for w in ("wq", "wk",
+                                                             "wv"))
+
+
+def _rope_qk(q, k, cos, sin):
+    if cos is None:
+        return q, k
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
 
 def attention_forward(cfg: ModelConfig, p: Dict, x, positions, *,
@@ -427,19 +462,29 @@ def attention_forward(cfg: ModelConfig, p: Dict, x, positions, *,
     Returns (out, cache) — the cache written in place, or None."""
     if cos is None:
         cos, sin = positional_cos_sin(cfg, positions)
-    q, k, v = _qkv(cfg, p, x, cos, sin)
+    q, k, v = _qkv(p, x)
+    # q may be sequence-sharded ("act_seq"); k/v are laid out
+    # seq-replicated here, once a layer, unless the "kv_seq_sharded" flag
+    # leaves them seq-sharded (the JAX twin's constraints)
+    kv_seq = "act_seq" if active_flag("kv_seq_sharded") else None
+    q = shard_act(q, "batch", "act_seq", "act_heads", "act_head_dim")
+    k = shard_act(k, "batch", kv_seq, "act_heads", "act_head_dim")
+    v = shard_act(v, "batch", kv_seq, "act_heads", "act_head_dim")
+    q, k = _rope_qk(q, k, cos, sin)
     kw = dict(causal=causal, scale=_attn_scale(cfg), window=window,
               softcap=cfg.attn_logit_softcap)
     if attn_impl == "plain":
         # sequence-parallel layout: one q block spanning the (seq-sharded)
         # length, as the JAX twin under the same flag
-        bq = q.shape[1] if active_flag("single_q_block") else 512
-        out = blocked_attention(q, k, v, block_q=bq, **kw)
+        kw["block_q"] = q.shape[1] if active_flag("single_q_block") else 512
+        attend = blocked_attention
     else:
-        out = ops.flash_attention(q, k, v, **kw)
+        attend = ops.flash_attention
+    out = attend_per_rank(attend, q, k, v, **kw)
     if cache is not None:
         kv_write_prefill(cache, k, v)
-    return project("bshk,hkd->bsd", out, p["wo"]), cache
+    out = project("bshk,hkd->bsd", out, p["wo"])
+    return shard_act(out, "batch", None, "act_embed"), cache
 
 
 def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
@@ -466,7 +511,8 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
             f"never reach this branch; use attn_impl='plain' for others")
     if cos is None:
         cos, sin = positional_cos_sin(cfg, lengths[:, None])
-    q, k, v = _qkv(cfg, p, x, cos, sin)
+    q, k, v = _qkv(p, x)
+    q, k = _rope_qk(q, k, cos, sin)
     kv_write_decode(cache, k, v, lengths)
     kd, vd = kv_read(cache, x.dtype)
     lens = lengths + 1
@@ -475,9 +521,10 @@ def attention_decode(cfg: ModelConfig, p: Dict, x, lengths, *,
     kw = dict(scale=_attn_scale(cfg), lengths=lens,
               softcap=cfg.attn_logit_softcap)
     if attn_impl == "plain":
-        out = decode_attention(q, kd, vd, window=window, **kw)
+        out = attend_per_rank(decode_attention, q, kd, vd, window=window,
+                              part=decode_attention_part, **kw)
     else:
-        out = paged_decode_attention(q, kd, vd, **kw)
+        out = attend_per_rank(paged_decode_attention, q, kd, vd, **kw)
     return project("bshk,hkd->bsd", out, p["wo"]), cache
 
 
@@ -531,4 +578,6 @@ def apply_mlp(cfg: ModelConfig, p: Dict, x):
         h = torch.square(F.relu(h))
     else:  # GELU
         h = F.gelu(h, approximate="tanh")
+    if h.dim() == 3:
+        h = shard_act(h, "batch", None, "mlp")
     return project("...f,fd->...d", h, p["wo"])

@@ -21,13 +21,15 @@ decode copy the new conv tail and state into the layer's cache views.
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.distributed.sharding import boxed
+from repro_torch.distributed.sharding import (boxed, einsum_per_rank,
+                                              is_dtensor, shard_act)
 from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_param
 
@@ -194,7 +196,155 @@ def _gated_out(p: Dict, y, z, dtype):
     gf = gated.float()
     var = gf.square().mean(-1, keepdim=True)
     y = (gf * torch.rsqrt(var + 1e-6) * p["norm_scale"]).to(dtype)
-    return torch.einsum("...e,ed->...d", y, p["out_proj"])
+    return einsum_per_rank("...e,ed->...d", y, p["out_proj"])
+
+
+def _split_xbc(cfg: ModelConfig, xBC, heads: slice, groups: slice):
+    """xBC [..., conv_dim] -> (x [..., Hl, P] of the heads ``heads``,
+    B and C [..., Gl, N] of the groups ``groups`` they read)."""
+    s = cfg.ssm
+    d_inner, _, _ = _dims(cfg)
+    gn = s.ngroups * s.state_dim
+    xs, Bmat, Cmat = torch.split(xBC, [d_inner, gn, gn], dim=-1)
+    lead = xBC.shape[:-1]
+    xs = xs.reshape(*lead, -1, s.head_dim)[..., heads, :]
+    Bmat = Bmat.reshape(*lead, s.ngroups, s.state_dim)[..., groups, :]
+    Cmat = Cmat.reshape(*lead, s.ngroups, s.state_dim)[..., groups, :]
+    return xs, Bmat, Cmat
+
+
+def _conv(cfg: ModelConfig, p: Dict, xBC, conv, step: bool):
+    """The mixer's causal conv over the channels it is given, then SiLU:
+    xBC [B, S, C] after the cached history ``conv`` [B, W - 1, C] (or
+    zeros) -> (the activation [B, S, C] in xBC's dtype, the conv's input
+    with its history, fp32); ``step``: one token, xBC [B, C]."""
+    s = cfg.ssm
+    w = p["conv_w"].float()                                   # [W, C]
+    if step:
+        conv_in = torch.cat([conv, xBC.float()[:, None, :]], dim=1)
+        out = torch.einsum("bwc,wc->bc", conv_in, w) + p["conv_b"][None]
+    else:
+        conv_in = xBC.float()
+        if conv is not None:
+            conv_in = torch.cat([conv, conv_in], dim=1)
+            out = _causal_conv_full(conv_in, w,
+                                    p["conv_b"])[:, s.conv_width - 1:]
+        else:
+            out = _causal_conv_full(conv_in, w, p["conv_b"])
+    return F.silu(out).to(xBC.dtype), conv_in
+
+
+def _scan(cfg: ModelConfig, p: Dict, act, dt, state, *, step: bool,
+          attn_impl: str = "plain", heads: slice = slice(None),
+          groups: slice = slice(None)):
+    """The SSD scan of the heads ``heads`` (their groups ``groups``) from
+    ``state`` (or zeros): act [B, S, conv_dim] (the conv's activation),
+    dt [B, S, H] before the softplus; ``step``: one token, act [B,
+    conv_dim], dt [B, H], state required.  Returns (y + D x [B, S, Hl, P]
+    (a step: [B, Hl, P]) fp32, the final state)."""
+    s = cfg.ssm
+    xs, Bmat, Cmat = _split_xbc(cfg, act, heads, groups)
+    A = -torch.exp(p["A_log"][heads])
+    if step:
+        dt = F.softplus(dt[..., heads].float() + p["dt_bias"][heads][None])
+        y, state = ssd_decode_step(state, xs, dt, A, Bmat, Cmat)
+        return y + p["D"][heads][None, :, None] * xs, state
+    xs, Bmat, Cmat = xs.contiguous(), Bmat.contiguous(), Cmat.contiguous()
+    dt = F.softplus(dt[..., heads].float() + p["dt_bias"][heads][None, None])
+    if attn_impl == "plain":
+        y, state = ssd_chunked(xs, dt, A, Bmat, Cmat, s.chunk_size,
+                               initial_state=state)
+    else:
+        y, state = ops.ssd_scan(xs, dt, A, Bmat, Cmat, chunk=s.chunk_size,
+                                initial_state=state)
+    return y + p["D"][heads][None, None, :, None] * xs, state
+
+
+def _ssm(cfg: ModelConfig, p: Dict, xBC, dt, cache, step: bool,
+         attn_impl: str = "plain"):
+    """The mixer between its projections, the cache's conv tail and state
+    written in place.  On ``DTensor``s (``_ssm_per_rank``) each rank runs
+    the conv over its own channels and the scan over its own heads."""
+    if is_dtensor(xBC):
+        return _ssm_per_rank(cfg, p, xBC, dt, cache, step, attn_impl)
+    s = cfg.ssm
+    act, conv_in = _conv(cfg, p, xBC, None if cache is None
+                         else cache["conv"], step)
+    y, state = _scan(cfg, p, act, dt, None if cache is None
+                     else cache["ssm"], step=step, attn_impl=attn_impl)
+    if cache is not None:
+        if s.conv_width > 1:
+            cache["conv"].copy_(conv_in[:, 1 - s.conv_width:])
+        cache["ssm"].copy_(state)
+    return y
+
+
+def _ssm_per_rank(cfg: ModelConfig, p: Dict, xBC, dt, cache, step: bool,
+                  attn_impl: str):
+    """``_ssm`` on ``DTensor``s, as GSPMD partitions the mixer laid out
+    over batch, channels and heads: each rank runs the depthwise conv over
+    its own batch rows and channels (its conv cache's layout, or xBC's;
+    the cache's block written in place), the activation is gathered over
+    the channels, and
+    each rank scans the heads it holds (as ``A_log`` splits them) with
+    their groups, its state's block written in place; y comes back
+    sharded by those heads."""
+    from torch.distributed.tensor import Replicate, Shard
+    from repro_torch.distributed.sharding import (block_index, per_rank,
+                                                  shard_dims)
+    s = cfg.ssm
+    mesh, dim = xBC.device_mesh, xBC.dim() - 1
+    H, G = p["A_log"].shape[0], s.ngroups
+    split = shard_dims(p["A_log"], 0)
+    # rows and channels as the cache holds them, else as xBC comes
+    lead = xBC if cache is None else cache["conv"]
+    batch, chans = shard_dims(lead, 0), shard_dims(lead, lead.dim() - 1)
+    n = H // math.prod(mesh.size(i) for i in split)
+    h0 = block_index(mesh, split) * n
+    per_group = H // G
+    if n % per_group and per_group % n:
+        raise ValueError(f"{n} heads a rank across groups of {per_group}")
+    g0 = h0 // per_group
+    heads = slice(h0, h0 + n)
+    groups = slice(g0, g0 + max(1, n // per_group))
+    if cache is not None and (shard_dims(cache["ssm"], 0) != batch
+                              or shard_dims(cache["ssm"], 1) != split):
+        raise ValueError("the SSM state's cache is not laid out as the "
+                         "conv's rows and the mixer's heads")
+
+    def lay(dims):
+        """Placements sharding each tensor dim of ``dims`` on its mesh
+        dims."""
+        out = [Replicate()] * mesh.ndim
+        for d, mesh_dims in dims.items():
+            for i in mesh_dims:
+                out[i] = Shard(d)
+        return tuple(out)
+
+    def conv(xl, w, b):
+        history = None if cache is None else cache["conv"].to_local()
+        act, conv_in = _conv(cfg, {"conv_w": w, "conv_b": b}, xl, history,
+                             step)
+        if cache is not None and s.conv_width > 1:
+            history.copy_(conv_in[:, 1 - s.conv_width:])
+        return act
+    act = per_rank(conv, mesh, (xBC, p["conv_w"], p["conv_b"]),
+                   (lay({0: batch, dim: chans}), lay({1: chans}),
+                    lay({0: chans})), lay({0: batch, dim: chans}))
+    names = ("dt_bias", "A_log", "D")
+
+    def scan(al, dl, *weights):
+        state = None if cache is None else cache["ssm"].to_local()
+        y, final = _scan(cfg, dict(zip(names, weights)), al, dl, state,
+                         step=step, attn_impl=attn_impl, heads=heads,
+                         groups=groups)
+        if cache is not None:
+            state.copy_(final)
+        return y.reshape(*y.shape[:-2], -1)
+    return per_rank(scan, mesh, (act, dt, *(p[k] for k in names)),
+                    (lay({0: batch}), lay({0: batch}))
+                    + ((Replicate(),) * mesh.ndim,) * len(names),
+                    lay({0: batch, dim: split}))
 
 
 def mamba_forward(cfg: ModelConfig, p: Dict, x,
@@ -203,77 +353,25 @@ def mamba_forward(cfg: ModelConfig, p: Dict, x,
     """Full-sequence (train / prefill) mamba mixer.  x: [B, S, d].
     Returns (y, cache): the cache's conv tail and state written in place,
     or None."""
-    s = cfg.ssm
     d_inner, nheads, conv_dim = _dims(cfg)
     B_, S, _ = x.shape
 
-    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])
+    proj = einsum_per_rank("bsd,de->bse", x, p["in_proj"])
     z, xBC, dt = torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
-
-    conv_in = xBC.float()
-    w = p["conv_w"].float()
-    if cache is not None:
-        conv_in = torch.cat([cache["conv"], conv_in], dim=1)
-        conv_out = _causal_conv_full(conv_in, w,
-                                     p["conv_b"])[:, s.conv_width - 1:]
-    else:
-        conv_out = _causal_conv_full(conv_in, w, p["conv_b"])
-    xBC = F.silu(conv_out).to(x.dtype)
-
-    gn = s.ngroups * s.state_dim
-    xs, Bmat, Cmat = torch.split(xBC, [d_inner, gn, gn], dim=-1)
-    xs = xs.reshape(B_, S, nheads, s.head_dim).contiguous()
-    Bmat = Bmat.reshape(B_, S, s.ngroups, s.state_dim).contiguous()
-    Cmat = Cmat.reshape(B_, S, s.ngroups, s.state_dim).contiguous()
-    dt = F.softplus(dt.float() + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])
-
-    init_state = cache["ssm"] if cache is not None else None
-    if attn_impl == "plain":
-        y, final_state = ssd_chunked(xs, dt, A, Bmat, Cmat, s.chunk_size,
-                                     initial_state=init_state)
-    else:
-        y, final_state = ops.ssd_scan(xs, dt, A, Bmat, Cmat,
-                                      chunk=s.chunk_size,
-                                      initial_state=init_state)
-    y = y + p["D"][None, None, :, None] * xs                  # fp32
+    xBC = shard_act(xBC, "batch", None, "ssm_inner")
+    y = _ssm(cfg, p, xBC, dt, cache, False, attn_impl)
     out = _gated_out(p, y.reshape(B_, S, d_inner), z, x.dtype)
-
-    if cache is not None:
-        if s.conv_width > 1:
-            cache["conv"].copy_(conv_in[:, 1 - s.conv_width:])
-        cache["ssm"].copy_(final_state)
-    return out, cache
+    return shard_act(out, "batch", None, "act_embed"), cache
 
 
 def mamba_decode(cfg: ModelConfig, p: Dict, x, cache: Dict):
     """One-token decode.  x: [B, 1, d].  Returns (y [B,1,d], cache) with
     the cache updated in place."""
-    s = cfg.ssm
     d_inner, nheads, conv_dim = _dims(cfg)
     B_ = x.shape[0]
 
-    proj = torch.einsum("bsd,de->bse", x, p["in_proj"])[:, 0]  # [B, e]
+    proj = einsum_per_rank("bsd,de->bse", x, p["in_proj"])[:, 0]  # [B, e]
     z, xBC, dt = torch.split(proj, [d_inner, conv_dim, nheads], dim=-1)
-
-    # conv ring update
-    conv_hist = torch.cat([cache["conv"], xBC.float()[:, None, :]], dim=1)
-    w = p["conv_w"].float()                                   # [W, C]
-    conv_out = torch.einsum("bwc,wc->bc", conv_hist, w) + p["conv_b"][None]
-    xBC = F.silu(conv_out).to(x.dtype)
-
-    gn = s.ngroups * s.state_dim
-    xs, Bmat, Cmat = torch.split(xBC, [d_inner, gn, gn], dim=-1)
-    xs = xs.reshape(B_, nheads, s.head_dim)
-    Bmat = Bmat.reshape(B_, s.ngroups, s.state_dim)
-    Cmat = Cmat.reshape(B_, s.ngroups, s.state_dim)
-    dt = F.softplus(dt.float() + p["dt_bias"][None, :])
-    A = -torch.exp(p["A_log"])
-
-    y, new_state = ssd_decode_step(cache["ssm"], xs, dt, A, Bmat, Cmat)
-    y = y + p["D"][None, :, None] * xs                        # fp32
+    y = _ssm(cfg, p, xBC, dt, cache, True)
     out = _gated_out(p, y.reshape(B_, d_inner), z, x.dtype)[:, None, :]
-
-    cache["conv"].copy_(conv_hist[:, 1:])
-    cache["ssm"].copy_(new_state)
     return out, cache

@@ -22,6 +22,8 @@ encoder-decoder.
     cache_axes(max_len)             -> logical-axes tree for the cache
     prefill(params, batch, cache)   -> (logits [B,V], cache, lengths)
     decode(params, tokens, cache, lengths) -> (logits [B,V], cache)
+    input_specs(shape)              -> ({name: meta tensor}, {name: axes})
+                                       for the dry-run
 
 The slices cover the dense decoder olmo-1b needs, the attention-free
 Mamba-2 stack of mamba2-780m, and the attention variants: gemma2-2b's
@@ -58,8 +60,12 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.configs.base import Family, ModelConfig, ShapeConfig, \
+    ShapeKind
 from repro_torch.device import require_device
+from repro_torch.distributed.sharding import (einsum_per_rank, embed_rows,
+                                              local_shape, logsumexp_last,
+                                              shard_act, take_last)
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -136,7 +142,7 @@ class Model:
 
     # ------------------------------------------------------------- pieces
     def _embed(self, params, tokens):
-        x = params["embed"][tokens].to(torch.bfloat16)
+        x = embed_rows(params["embed"], tokens).to(torch.bfloat16)
         if self.cfg.scale_embedding:
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype)
         return x
@@ -155,11 +161,21 @@ class Model:
         V = head.shape[vocab_dim]
         n = max(1, LOGITS_CHUNK_BYTES // (4 * cfg.d_model))
         xf = x.float()
-        logits = torch.cat([
-            torch.einsum(eq, xf, head.narrow(vocab_dim, i,
-                                             min(n, V - i)).float())
-            for i in range(0, V, n)], dim=-1)
-        return _softcap(logits, cfg.final_logit_softcap)
+        if local_shape(head)[vocab_dim] <= n:
+            # the whole head (a rank's shard of it, under a DTensor
+            # layout) in one product: no concatenation along the vocab,
+            # which a vocab-sharded DTensor could only gather for
+            logits = einsum_per_rank(eq, xf, head.float())
+        else:
+            logits = torch.cat([einsum_per_rank(eq, xf, head.narrow(
+                vocab_dim, i, min(n, V - i)).float())
+                for i in range(0, V, n)], dim=-1)
+        logits = _softcap(logits, cfg.final_logit_softcap)
+        if logits.dim() == 3:
+            return shard_act(logits, "batch", None, "act_vocab")
+        if logits.dim() == 2:
+            return shard_act(logits, "batch", "act_vocab")
+        return logits
 
     def _inputs(self, params, batch):
         """(x [B,S,d] bf16, positions): a VLM's precomputed ``embeds`` with
@@ -174,7 +190,7 @@ class Model:
         if positions is None:
             B, S, _ = x.shape
             positions = torch.arange(S, device=x.device)[None].expand(B, S)
-        return x, positions
+        return shard_act(x, "batch", None, "act_embed"), positions
 
     def _encdec_pass(self, params, batch, self_caches=None, remat=False):
         """Encoder, cross K/V, teacher-forced decoder over the target
@@ -248,11 +264,10 @@ class Model:
 
         def ce_chunk(xc, yc, mc):
             logits = self._logits(params, xc)           # fp32 [B, cs, V]
-            lse = torch.logsumexp(logits, dim=-1)
+            lse = logsumexp_last(logits)
             # a masked label may be negative: gather a real row (the mask
             # zeroes it), where the JAX twin's take_along_axis wraps
-            ll = torch.gather(logits, -1,
-                              yc.clamp(min=0)[..., None].long())[..., 0]
+            ll = take_last(logits, yc.clamp(min=0))
             return torch.sum((lse - ll) * mc), torch.sum(mc)
 
         grad = torch.is_grad_enabled()
@@ -348,7 +363,8 @@ class Model:
         x = self._embed(params, tokens[:, None])
         if self.cfg.is_encdec:
             ep = params["encdec"]
-            pos = ep["pos_dec"][lengths.long().clamp(0, ED.POS_TABLE_LEN - 1)]
+            pos = embed_rows(ep["pos_dec"],
+                             lengths.long().clamp(0, ED.POS_TABLE_LEN - 1))
             x, _ = ED.decode_step(self.cfg, ep, x + pos[:, None].to(x.dtype),
                                   lengths=lengths, self_caches=cache["self"],
                                   cross_cache=cache,
@@ -359,6 +375,42 @@ class Model:
                                      attn_impl=self.attn_impl)
         x = L.apply_norm(self.cfg, params["norm_final"], x)
         return self._logits(params, x[:, 0]), cache
+
+
+    # -------------------------------------------------------- input specs
+    def input_specs(self, shape: ShapeConfig):
+        """(inputs, axes) for the dry-run: shape-only ``meta`` tensors of a
+        step's batch at ``shape`` (int32 tokens and lengths, bf16 frames
+        or VLM embeddings, M-RoPE positions [3, B, S], a VLM's training
+        labels) and the logical axes of each, as the JAX twin's
+        ``input_specs``.  DECODE gives ``tokens`` and ``lengths`` [B]; an
+        encoder-decoder's prefill feeds one target token."""
+        cfg = self.cfg
+        B, S = shape.global_batch, shape.seq_len
+        i32, bf16 = torch.int32, torch.bfloat16
+
+        def spec(*dims, dtype=i32):
+            return torch.empty(dims, dtype=dtype, device="meta")
+
+        if shape.kind == ShapeKind.DECODE:
+            return ({"tokens": spec(B), "lengths": spec(B)},
+                    {"tokens": ("batch",), "lengths": ("batch",)})
+        if cfg.is_encdec:
+            tgt_len = S if shape.kind == ShapeKind.TRAIN else 1
+            return ({"src_embeds": spec(B, S, cfg.d_model, dtype=bf16),
+                     "tgt_tokens": spec(B, tgt_len)},
+                    {"src_embeds": ("batch", None, None),
+                     "tgt_tokens": ("batch", None)})
+        if cfg.family == Family.VLM:
+            inputs = {"embeds": spec(B, S, cfg.d_model, dtype=bf16),
+                      "positions": spec(3, B, S)}
+            axes = {"embeds": ("batch", None, None),
+                    "positions": (None, "batch", None)}
+            if shape.kind == ShapeKind.TRAIN:
+                inputs["labels"] = spec(B, S)
+                axes["labels"] = ("batch", None)
+            return inputs, axes
+        return {"tokens": spec(B, S)}, {"tokens": ("batch", None)}
 
 
 def _device(device) -> torch.device:

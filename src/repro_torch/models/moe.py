@@ -55,6 +55,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import Activation, ModelConfig
+from repro_torch.distributed.sharding import is_dtensor, shard_act
 from repro_torch.models import layers as L
 
 
@@ -94,6 +95,7 @@ def _expert_ffn(cfg: ModelConfig, p: Dict, xe):
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
+    h = shard_act(h, "batch", "expert", None, "mlp")
     return torch.einsum("becf,efd->becd", h, p["w_down"])
 
 
@@ -146,17 +148,21 @@ def route(cfg: ModelConfig, p: Dict, xc, C: int) -> Routing:
     return Routing(probs, idx, gate, mask, pos, pos < C)
 
 
-def _onehot_moe(cfg: ModelConfig, p: Dict, xc, r: Routing, C: int):
+def _onehot_moe(cfg: ModelConfig, p: Dict, xc, r: Routing, C: int,
+                experts: slice = slice(None)):
     """The reference's GShard dispatch and combine of one chunk:
-    xc [B, s, d] -> y."""
+    xc [B, s, d] -> y.  ``experts``: the experts ``p`` holds (all of them
+    but on a rank of an expert-parallel layout, whose y is then its
+    experts' part of the sum)."""
     B, s, d = xc.shape
     k = cfg.moe.top_k
     cap_oh = (r.pos[..., None] == torch.arange(C, device=xc.device)).float()
-    disp = (r.mask[..., None] * cap_oh[:, :, None, :]
+    disp = (r.mask[..., experts, None] * cap_oh[:, :, None, :]
             * r.keep[..., None, None])                       # [B, sk, E, C]
     combine = disp * r.gate[:, :, None, None]
     x_f = torch.repeat_interleave(xc, k, dim=1)              # [B, sk, d]
     xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), x_f)
+    xe = shard_act(xe, "batch", "expert", None, "act_embed")
     ye = _expert_ffn(cfg, p, xe)                             # [B, E, C, d]
     y = torch.einsum("btec,becd->btd", combine.to(xc.dtype), ye)
     return y.reshape(B, s, k, d).sum(dim=2)
@@ -221,36 +227,121 @@ def apply_moe(cfg: ModelConfig, p: Dict, x, *, chunk_size: int = 0,
     module docstring).  One-token chunks under autograd take the sorted
     dispatch: the batched one, which runs every expert on every token, is
     decode's."""
-    B, S, d = x.shape
     if chunk_size == 0:
         chunk_size = 256 if dropless else 1024  # dropless capacity is s*k
+    if attn_impl == "plain" and is_dtensor(x):
+        return _moe_per_rank(cfg, p, x, chunk_size, dropless)
+    rows, r, C, slots, probs = _routed(cfg, p, x, chunk_size, dropless)
+    # the aux loss before the dispatch, as the reference orders them: a
+    # remat recompute stops at the last tensor the backward saves
+    aux = _aux(cfg, x, chunk_size, slots, probs)
+    return _dispatched(cfg, p, rows, r, C, x.shape, attn_impl), aux
+
+
+def _routed(cfg: ModelConfig, p: Dict, x, chunk_size: int, dropless: bool):
+    """``apply_moe``'s routing of x [B, S, d]: (rows, r, C, slots, probs).
+    rows [nc * B, cs, d] are every chunk's batch rows (the last chunk
+    zero-padded), chunk-major as the reference's scan, routed by one
+    router product so both dispatches route alike; slots and probs
+    [nc, E] each chunk's sums over its batch rows of the one-hot slots
+    and of the router probabilities (padded rows included, as in the
+    reference)."""
+    B, S, d = x.shape
+    E, k = cfg.moe.num_experts, cfg.moe.top_k
     cs = min(chunk_size, S)
     pad = (-S) % cs
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
     nc = x.shape[1] // cs
-    # every chunk's batch rows at once, chunk-major as the reference's
-    # scan: one router product, so both dispatches route alike
     rows = x.reshape(B, nc, cs, d).transpose(0, 1).reshape(nc * B, cs, d)
     C = capacity(cfg, cs, dropless)
     r = route(cfg, p, rows, C)
-    # the Switch load-balancing loss of each chunk (padded rows included,
-    # as in the reference), averaged over the chunks
-    E, k = cfg.moe.num_experts, cfg.moe.top_k
-    aux = E * torch.sum(r.mask.view(nc, B * cs * k, E).mean(1)
-                        * r.probs.view(nc, B * cs, E).mean(1), dim=-1)
-    aux = aux[0] if nc == 1 else aux.sum() / nc
+    return (rows, r, C, r.mask.view(nc, B * cs * k, E).sum(1),
+            r.probs.view(nc, B * cs, E).sum(1))
+
+
+def _dispatched(cfg: ModelConfig, p: Dict, rows, r: Routing, C: int, shape,
+                attn_impl: str, experts: slice = slice(None)):
+    """The experts' output y [B, S, d] of ``_routed``'s rows, for x of
+    ``shape``.  ``experts``: the experts ``p`` holds (the one-hot dispatch
+    only)."""
+    B, S, _ = shape
+    N, cs, d = rows.shape
+    nc = N // B
     if attn_impl == "plain":
         y = torch.cat([_onehot_moe(
             cfg, p, rows[c * B:(c + 1) * B],
-            Routing(*(t[c * B:(c + 1) * B] for t in r)), C)
+            Routing(*(t[c * B:(c + 1) * B] for t in r)), C, experts)
             for c in range(nc)])
     elif cs == 1 and not (torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, *p.values()))):
+            t.requires_grad for t in (rows, *p.values()))):
         y = _dense_moe(cfg, p, rows, r)
     else:
-        real = (torch.arange(nc * cs, device=x.device) < S).view(nc, 1, cs)
+        real = (torch.arange(nc * cs, device=rows.device) < S).view(nc, 1, cs)
         y = _sorted_moe(cfg, p, rows, r, real.expand(nc, B, cs)
                         .reshape(nc * B, cs))
     y = y.view(nc, B, cs, d).transpose(0, 1).reshape(B, nc * cs, d)
-    return y[:, :S], aux
+    return y[:, :S]
+
+
+def _aux(cfg: ModelConfig, x, chunk_size: int, slots, probs):
+    """The Switch load-balancing loss of ``apply_moe``'s x from
+    ``_routed``'s sums over all B batch rows: each chunk's fractions of
+    slots and of router probability an expert takes, averaged over the
+    chunks."""
+    n = x.shape[0] * min(chunk_size, x.shape[1])      # a chunk's tokens
+    aux = cfg.moe.num_experts * torch.sum(
+        slots / (n * cfg.moe.top_k) * (probs / n), dim=-1)
+    return aux[0] if aux.shape[0] == 1 else aux.sum() / aux.shape[0]
+
+
+def _moe_per_rank(cfg: ModelConfig, p: Dict, x, chunk_size: int,
+                  dropless: bool):
+    """``apply_moe``'s plain path on ``DTensor``s: each rank routes its own
+    batch rows (the router gathered) and runs the one-hot dispatch over
+    the experts it holds (the embed dim of their weights gathered, as
+    FSDP does), so its y is its experts' part of the sum (``Partial``
+    over the mesh dims that split the experts, or their mlp dim where
+    the experts are not split); the aux loss is built from the ranks'
+    sums of slot and probability counts.  The ranks that split the
+    experts route the same rows alike: each returns 1/n of those sums as
+    its part, so both the sums and the router's gradient add up once.
+    As GSPMD partitions the one-hot dispatch laid out over batch and
+    experts."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.distributed.sharding import (block_index, per_rank,
+                                                  shard_dims)
+    mesh = x.device_mesh
+    E = cfg.moe.num_experts
+    batch = shard_dims(x, 0)
+    split_e = shard_dims(p["w_up"], 0)
+    split_f = shard_dims(p["w_up"], 2)
+    n_e = E // math.prod(mesh.size(i) for i in split_e)
+    e0 = block_index(mesh, split_e) * n_e
+    experts = slice(e0, e0 + n_e)
+    names = sorted(p)                # router, w_down, w_gate?, w_up
+
+    def layout(name):
+        dim_f = 1 if name == "w_down" else 2
+        return tuple(Replicate() if name == "router" else
+                     Shard(0) if i in split_e else
+                     Shard(dim_f) if i in split_f else Replicate()
+                     for i in range(mesh.ndim))
+
+    def local(xl, *weights):
+        pl = dict(zip(names, weights))
+        rows, r, C, slots, probs = _routed(cfg, pl, xl, chunk_size, dropless)
+        return (_dispatched(cfg, pl, rows, r, C, xl.shape, "plain", experts),
+                slots / same, probs / same)
+    same = math.prod(mesh.size(i) for i in split_e + split_f)
+    rows_of = tuple(Shard(0) if i in batch else Replicate()
+                    for i in range(mesh.ndim))
+    summed = tuple(Partial() if i in batch + split_e + split_f
+                   else Replicate() for i in range(mesh.ndim))
+    y, slots, probs = per_rank(
+        local, mesh, (x, *(p[n] for n in names)),
+        (rows_of, *(layout(n) for n in names)),
+        [tuple(Shard(0) if i in batch else
+               Partial() if i in split_e + split_f else Replicate()
+               for i in range(mesh.ndim)), summed, summed])
+    return y, _aux(cfg, x, chunk_size, slots, probs)

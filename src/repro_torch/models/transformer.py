@@ -24,7 +24,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
-from repro_torch.distributed.sharding import prepend_axis
+from repro_torch.distributed.sharding import prepend_axis, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
 from repro_torch.models import moe as MOE
@@ -225,7 +225,10 @@ def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
                                 dropless=dropless)
             if a is not None:
                 aux = aux + a
-        return x, aux
+        # "act_seq" engages Megatron-style sequence parallelism for the
+        # residual stream kept between repeats (rules-controlled; off by
+        # default)
+        return shard_act(x, "batch", "act_seq", "act_embed"), aux
 
     remat = remat and torch.is_grad_enabled()
     aux = x.new_zeros((), dtype=torch.float32)

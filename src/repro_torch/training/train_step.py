@@ -1,5 +1,6 @@
-"""Training step: loss -> backward -> optional int8 compression of the
-gradients -> AdamW; the twin of ``repro/training/train_step.py``.
+"""Training step: loss -> backward -> data-parallel mean -> optional int8
+fake-quant of the gradients -> AdamW; the twin of
+``repro/training/train_step.py``.
 
 The gradient comes from autograd over ``Model.loss``.  On the card every
 attention layer's forward runs the hand-written flash kernel and its
@@ -13,9 +14,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 
 from repro_torch import tree as TR
-from repro_torch.distributed.collectives import compressed_allreduce
+from repro_torch.distributed.sharding import laid_out_as
 from repro_torch.models.model import Model
 from repro_torch.training.optimizer import (AdamWConfig, adamw_init,
                                             adamw_update)
@@ -48,9 +50,27 @@ def loss_and_grads(model: Model, params, batch):
     for p in leaves:
         p.requires_grad_(True)
     loss, metrics = model.loss(params, batch)
-    grads = torch.autograd.grad(loss, leaves)
+    grads = [laid_out_as(g, p) for g, p in
+             zip(torch.autograd.grad(loss, leaves), leaves)]
     return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
             TR.unflatten_like(params, grads))
+
+
+def grad_mean(group):
+    """Returns fn(g) -> the mean over ``group``'s ranks of each rank's
+    ``g``: the ranks' gradients all-gathered, summed in ``g``'s dtype in
+    rank order and divided by the group's size, so every rank holds the
+    same bits."""
+    def fn(g):
+        n = dist.get_world_size(group)
+        g = g.contiguous()          # NCCL gathers into contiguous buffers
+        parts = [torch.empty_like(g) for _ in range(n)]
+        dist.all_gather(parts, g, group=group)
+        total = parts[0]
+        for part in parts[1:]:
+            total = total + part
+        return total / n
+    return fn
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, *, group=None):
@@ -58,25 +78,26 @@ def make_train_step(model: Model, tcfg: TrainConfig, *, group=None):
     metrics).  The parameters and moments are updated in place (see
     ``training/optimizer.py``).
 
-    With ``grad_compression="int8"`` and a data-parallel process ``group``
-    the gradients go through the int8-compressed all-reduce over it
-    (``distributed.collectives.compressed_allreduce``); without a group
-    the int8 fake-quant stands in for it, the same function at one rank.
-    A group without int8 compression is refused: the port has no other
-    gradient all-reduce."""
+    With a data-parallel process ``group`` each rank takes the gradient of
+    its own shard of the batch, and the ranks' gradients are averaged
+    (``grad_mean``) before anything else: the gradient of the mean loss
+    over the global batch wherever every rank's shard has as many
+    unmasked tokens (``make_batch``'s batches do), which is what the JAX
+    twin takes under GSPMD.  ``grad_compression="int8"`` then fake-quantizes
+    that mean, Q(mean_r g_r), as the JAX twin does.  The wire-level int8
+    all-reduce (``distributed.collectives.compressed_allreduce``) computes
+    mean_r Q(g_r), another function, and no train step calls it."""
     if tcfg.grad_compression not in ("none", "int8"):
         raise ValueError(f"grad_compression {tcfg.grad_compression!r} not "
                          f"in ('none', 'int8')")
-    if group is not None and tcfg.grad_compression != "int8":
-        raise ValueError("a data-parallel group needs grad_compression="
-                         "'int8' (the compressed all-reduce)")
-    compress = (quantize_dequantize_int8 if group is None
-                else compressed_allreduce(group))
+    reduce = grad_mean(group) if group is not None else None
 
     def train_step(params, opt_state, batch):
         loss, metrics, grads = loss_and_grads(model, params, batch)
+        if reduce is not None:
+            grads = TR.map_tree(reduce, grads)
         if tcfg.grad_compression == "int8":
-            grads = TR.map_tree(compress, grads)
+            grads = TR.map_tree(quantize_dequantize_int8, grads)
         params, opt_state, opt_metrics = adamw_update(
             tcfg.opt, grads, opt_state, params)
         metrics = dict(metrics, loss=loss, **opt_metrics)

@@ -1677,12 +1677,8 @@ def test_reduced_moe_and_encdec_training_step_kernel_path_matches_plain_path(
     input at other places, and at this width a near-tied top-k pick that
     flips between them, with the capacity drops it moves, takes the
     router's gradient to cosine 0.986 (CPU, plain versions); in fp32 both
-    paths pick the same experts.  jamba-1.5-large's 8 MoE layers sit
-    behind Mamba blocks whose fp32 scan the kernel sums in another order
-    (within 1e-3, its own tests): there even fp32 moved the loss by
-    4.3e-4 between the paths on the card, so its whole-model check is the
-    launches and the determinism; its MoE gradient is held layer by layer
-    above and its scan's backward in its own tests."""
+    paths pick the same experts.  jamba-1.5-large (fp32, as mixtral) is
+    held path by path (``jamba_paths_one_at_a_time``)."""
     import dataclasses
     from repro_torch import tree as TR
     from repro_torch.configs import get_config
@@ -1710,6 +1706,7 @@ def test_reduced_moe_and_encdec_training_step_kernel_path_matches_plain_path(
     assert all(torch.equal(a, b) for a, b in zip(TR.leaves(grads_k),
                                                  TR.leaves(grads_2)))
     if cfg.attn_every:
+        jamba_paths_one_at_a_time(cfg, kernel, batch, cuda, monkeypatch)
         return
     loss_tol, min_cos = 1e-2, 0.99
     if cfg.moe is not None:
@@ -1725,6 +1722,71 @@ def test_reduced_moe_and_encdec_training_step_kernel_path_matches_plain_path(
         a, b = a.float().flatten(), b.float().flatten()
         cos = float(a @ b / (a.norm() * b.norm()))
         assert cos > min_cos, (path, cos)
+
+
+def jamba_paths_one_at_a_time(cfg, model, batch, cuda, monkeypatch):
+    """jamba-1.5-large .reduced() at head_dim 64 (``cfg``, ``model``), fp32
+    (every parameter, the embedding not rounded), one loss and gradient of
+    the 2 x 200 ``batch``, its three paths swapped between kernel and
+    plain one at a time
+    (``tools/jamba_path_swap.py`` runs every combination, and a float64
+    reference).  The card's measurement there (NVIDIA H100 80GB HBM3,
+    700 W): with the MoE on the one-hot dispatch, the scan and flash
+    kernels move the loss by 0 and each gradient leaf by at most 1.1e-4
+    of its norm; with the scan and attention plain, the sorted dispatch
+    moves the loss by 0 and a leaf by 1.8e-5; every such combination
+    routes each slot as the all-plain path does.  Only the scan kernel
+    and the sorted dispatch together moved it: 8 top-k picks flipped
+    (near ties, which the two paths' fp32 roundings, summed in other
+    orders, tip apart) and the loss by 4.3e-4 (the 4.3e-4 this test's
+    predecessor saw), 4.3e-4 from float64 too; no capacity drop moved.
+    So: with every slot routed alike, the loss within 1e-5 and every leaf
+    within 1e-3 of its norm (cosine at least 0.99999); the whole kernel
+    path's flips at most 1 % of the slots, its loss within 1e-3."""
+    from repro_torch import tree as TR
+    from repro_torch.models import layers as L
+    from repro_torch.models import mamba2 as M
+    from repro_torch.models import model as TMM
+    from repro_torch.models import moe as MOE
+    from repro_torch.training.train_step import loss_and_grads
+    monkeypatch.setattr(TMM.Model, "_embed", lambda self, p, t: p["embed"][t])
+    params = TR.map_tree(lambda t: t.detach().float(),
+                         model.init(0, device=cuda))
+    saved = (M.mamba_forward, L.attention_forward, MOE.apply_moe, MOE.route)
+
+    def run(scan, attn, moe):
+        routes = []
+
+        def on(fn, impl):
+            return lambda *a, **kw: fn(*a, **dict(kw, attn_impl=impl))
+
+        def route(*a, **kw):
+            r = saved[3](*a, **kw)
+            routes.append((r.idx, r.keep))
+            return r
+        monkeypatch.setattr(M, "mamba_forward", on(saved[0], scan))
+        monkeypatch.setattr(L, "attention_forward", on(saved[1], attn))
+        monkeypatch.setattr(MOE, "apply_moe", on(saved[2], moe))
+        monkeypatch.setattr(MOE, "route", route)
+        loss, _, grads = loss_and_grads(model, params, batch)
+        return float(loss), TR.leaves(grads), routes
+
+    plain = run("plain", "plain", "plain")
+    slots = sum(idx.numel() for idx, _ in plain[2])
+    for combo in (("kernel", "kernel", "plain"), ("plain", "plain", "kernel")):
+        loss, grads, routes = run(*combo)
+        assert all(torch.equal(a, b) and torch.equal(c, d) for (a, c), (b, d)
+                   in zip(routes, plain[2])), combo
+        assert abs(loss - plain[0]) < 1e-5, (combo, loss, plain[0])
+        for g, w in zip(grads, plain[1]):
+            g, w = g.flatten(), w.flatten()
+            assert float((g - w).norm() / w.norm()) < 1e-3, combo
+            assert float(g @ w / (g.norm() * w.norm())) > 0.99999, combo
+    loss, _, routes = run("kernel", "kernel", "kernel")
+    flips = sum(int((a != b).sum()) for (a, _), (b, _) in zip(routes,
+                                                              plain[2]))
+    assert flips <= 0.01 * slots, (flips, slots)
+    assert abs(loss - plain[0]) < 1e-3, (loss, plain[0])
 
 
 # ------------------------------------------------- the distributed layer
@@ -1746,7 +1808,9 @@ def nccl_world(cuda):
 def test_nccl_compressed_allreduce_at_one_rank_is_the_int8_fake_quant(
         nccl_world):
     """At one rank the compressed all-reduce and the int8 fake-quant
-    compute the same function: the same bits, both dtypes, every shape."""
+    compute the same function: the same bits, both dtypes, every shape,
+    and on a transposed (not contiguous) gradient, as autograd may hand
+    one (NCCL gathers into contiguous buffers alone)."""
     from repro_torch.distributed.collectives import compressed_allreduce
     from repro_torch.training import quantize_dequantize_int8
     reduce = compressed_allreduce(nccl_world.group.WORLD)
@@ -1755,9 +1819,10 @@ def test_nccl_compressed_allreduce_at_one_rank_is_the_int8_fake_quant(
         for dtype in (torch.float32, torch.bfloat16):
             g = (torch.randn(shape, generator=gen, device="cuda")
                  * 3e-3).to(dtype)
-            got, want = reduce(g), quantize_dequantize_int8(g)
-            assert got.dtype == dtype and torch.equal(got, want), \
-                (shape, dtype)
+            for x in (g, g.transpose(0, -1)):
+                got, want = reduce(x), quantize_dequantize_int8(x)
+                assert got.dtype == dtype and torch.equal(got, want), \
+                    (shape, dtype, x.is_contiguous())
 
 
 @pytest.mark.cuda
