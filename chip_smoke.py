@@ -112,6 +112,25 @@ frame embeddings from --seed.
             every decoder layer (counted by capacity, 80 and 1500); the
             logits against the teacher-forced forward over the generated
             sequence.
+Then the cluster simulator, which does no device work itself:
+sim         olmo-1b at full width: prefills of 128, 512 and 2048 tokens at
+            batch 1 and decode steps at batch 1, 2 and 4 over contexts of
+            512 and 2048, each on the host clock (median of 5) beside the
+            profiler's busy time; InstanceSpec's compute_eff, bw_eff and
+            launch_overhead_s fitted to them by least squares through
+            CostModel.prefill_time/decode_time at one chip, beside the
+            committed ones (serving/costmodel.py), each point beside both
+            predictions (gates: each fitted efficiency in (0, 1]; the
+            committed derates predict each host time within 2x); the
+            engine in dynamic_pd on the engine phase's traffic under
+            FLEX_PROFILE=1 and the reference's LatencyModel fitted to its
+            trace (its calibration report); run_sim for mixtral-8x7b x
+            1k1k on 384 simulated cards under dynamic and 6p2d (gate: all
+            2,000 requests complete, none fails); a one-card simulation of
+            olmo-1b's engine traffic (8 prompts, 32 new tokens, a burst,
+            max_num_seqs 4) under static_colocate and dynamic_pd beside the
+            engine phase's measured TTFT and TPOT (not a gate: a ratio
+            outside [0.5, 2] is printed as a fault); the phase's seconds.
 Then training, olmo-1b (1,176,764,416 parameters), gemma2-2b
 (2,614,341,888: head_dim 256, G = 2, an attention softcap of 50),
 mamba2-780m (780,148,992: 48 SSD layers), mixtral-8x7b at full layer
@@ -174,7 +193,10 @@ HashStore: no port) and the 1 x 1 (data, model) DeviceMesh on the card:
             DRYRUN_CELLS on the 256- and 512-rank production meshes, each
             of which must complete (per-rank GB and whether they fit 80
             GB, FLOPs, collective bytes by type, roofline terms and trace
-            seconds, a line each), and the phase's seconds.
+            seconds, a line each) with its peak of live bytes equal to the
+            CPU's to the byte (DRYRUN_PEAKS) and jamba-1.5-large's decode
+            FLOPs within 5 % of the JAX package's (DRYRUN_JAX_FLOPS), and
+            the phase's seconds.
 9. report   one ``{"kernels": [...]}`` line, then the card line, then
             ``{"ok": true, "device": {...}}`` as the last line.
 """
@@ -377,10 +399,44 @@ DRYRUN_CELLS = (("olmo-1b", "train_4k", "single"),
                 ("mixtral-8x7b", "prefill_32k", "single"),
                 ("jamba-1.5-large-398b", "long_500k", "multi"))
 DRYRUN_TIMEOUT_S = 400
+# each cell's peak of live bytes (mem_temp_bytes), which the op stream
+# alone sets: the CPU's figures (torch 2.13.0+cpu; ``PYTHONPATH=src python
+# -m repro_torch.launch.dryrun --arch ARCH --shape SHAPE --mesh MESH``),
+# which the card's torch must give to the byte
+DRYRUN_PEAKS = {("olmo-1b", "train_4k", "single"): 8_913_145_872,
+                ("mixtral-8x7b", "prefill_32k", "single"): 3_221_487_620,
+                ("jamba-1.5-large-398b", "long_500k", "multi"): 335_545_860}
+# the JAX package's FLOPs a rank for one-token decode on FSDP weights
+# (``PYTHONPATH=src python tools/jax_dryrun_cells.py --cells
+# jamba-1.5-large-398b:long_500k:multi``, CPU), and the share within which
+# the port's dry-run must count them
+DRYRUN_JAX_FLOPS = {("jamba-1.5-large-398b", "long_500k", "multi"):
+                    3_383_123_840.0}
+DRYRUN_FLOPS_TOL = 0.05
+# the sim phase: InstanceSpec's derates fitted (least squares, host clock)
+# to olmo-1b's own prefills at batch 1 and decode steps; the reference's
+# LatencyModel fitted to an engine trace (FLEX_PROFILE=1); the 384-card
+# simulation of mixtral-8x7b x 1k1k at the H100's constants; a one-card
+# simulation of the engine phase's own traffic beside its measured TTFT and
+# TPOT
+SIM_ARCH = "olmo-1b"
+SIM_PREFILL_LENS = (128, 512, 2048)
+SIM_DECODE_BATCHES = (1, 2, 4)
+SIM_DECODE_CONTEXTS = (512, 2048)
+SIM_DECODE_STEPS = 4
+SIM_DEPLOYMENTS = ("dynamic", "6p2d")
+SIM_ENGINE_MODES = ("static_colocate", "dynamic_pd")
+SIM_PREDICT_FACTOR = 2.0      # committed derates: each point within 2x
+SIM_RATIO_BOUNDS = (0.5, 2.0)  # sim / measured outside: a fault to record
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+# each engine run's result, by (model, mode): the sim phase sets the
+# simulated TTFT and TPOT beside the measured ones
+ENGINE_RESULTS = {}
 
 
 def require(ok: bool, what: str) -> None:
@@ -2045,10 +2101,11 @@ def check_moe_layer(cfg, params, prompt_len: int, seed: int) -> None:
               f"plain_ms={plain_ms * n_moe!r}")
 
 
-def print_trace(prof, per: int, host_ms: float, what: str):
+def print_trace(prof, per: int, host_ms: float, what: str, top: int = 6):
     """From a torch.profiler trace of ``per`` runs: the device's busy time
-    a run, its share of ``host_ms``, the kernel launches and the costliest
-    kernels.  Returns (busy ms, launches, {kernel: ms}), a run each."""
+    a run, its share of ``host_ms``, the kernel launches and the ``top``
+    costliest kernels.  Returns (busy ms, launches, {kernel: ms}), a run
+    each."""
     from torch.autograd import DeviceType
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA]
@@ -2063,13 +2120,14 @@ def print_trace(prof, per: int, host_ms: float, what: str):
               f"no CUDA kernel)")
         return busy_ms, n_launch, by_kernel
     print(f"  {what}: device busy share {busy_ms / host_ms!r}")
-    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:top]:
         print(f"    {e.self_device_time_total / 1e3 / per:8.4f} ms "
               f"x{e.count // per:<4d} {e.key[:90]}")
     return busy_ms, n_launch, by_kernel
 
 
-def host_and_trace(run, what: str, per: int = 1, runs: int = 5):
+def host_and_trace(run, what: str, per: int = 1, runs: int = 5,
+                   top: int = 6):
     """``run`` (``per`` steps, ending in a synchronize) warmed up, timed on
     the host clock ``runs`` times (the host clock spreads: the median is
     reported, ms a step) and traced once with torch.profiler
@@ -2089,7 +2147,7 @@ def host_and_trace(run, what: str, per: int = 1, runs: int = 5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         run()
-    return host_ms, print_trace(prof, per, median, what)
+    return host_ms, print_trace(prof, per, median, what, top)
 
 
 def profile_prefill(cfg, params, prompt_len: int, seed: int):
@@ -2414,6 +2472,7 @@ def run_engine(cfg, params, prompts, max_len):
             for kind, m in kinds[name].items():
                 kind_totals[name][kind] = kind_totals[name].get(kind, 0) + m
         tokens[mode] = [r.output_tokens for r in reqs]
+        ENGINE_RESULTS[cfg.name, mode] = res
         print(f"  engine[{cfg.name} {mode}]: completed={res['completed']} "
               f"failed={res['failed']} ttft_mean_s={res['ttft_mean_s']!r} "
               f"ttft_p95_s={res['ttft_p95_s']!r} "
@@ -2484,6 +2543,250 @@ def run_sanitized(cfg, params, prompts, max_len, want_tokens) -> None:
             os.environ.pop("FLEX_SANITIZE")
         else:
             os.environ["FLEX_SANITIZE"] = before
+
+
+# ---------------------------------------------------------------------- sim
+
+def sim_measure(cfg, params, seed: int):
+    """olmo-1b's step times on the card: a prefill at batch 1 of each of
+    SIM_PREFILL_LENS tokens, and a decode step at each batch of
+    SIM_DECODE_BATCHES over each context of SIM_DECODE_CONTEXTS, each on
+    the host clock (median of 5, as the engine's own calls) beside the
+    profiler's busy time.  Returns the points, one dict each."""
+    from repro_torch.models import build_model
+    model = build_model(cfg)
+    rng = np.random.default_rng(seed + 5)
+    points = []
+    for n in SIM_PREFILL_LENS:
+        cache = model.init_cache(1, n, device="cuda")
+        toks = torch.tensor(rng.integers(0, cfg.vocab_size, (1, n)),
+                            dtype=torch.long, device="cuda")
+
+        def prefill():
+            model.prefill(params, {"tokens": toks}, cache)
+            torch.cuda.synchronize()
+        host_ms, (busy_ms, _, _) = host_and_trace(
+            prefill, f"sim: prefill of {n} tokens at batch 1", top=0)
+        points.append(dict(kind="prefill", tokens=n, ctx=0,
+                           host_s=float(np.median(host_ms)) * 1e-3,
+                           busy_s=busy_ms * 1e-3))
+        del cache
+    for ctx in SIM_DECODE_CONTEXTS:
+        for B in SIM_DECODE_BATCHES:
+            cache = model.init_cache(B, ctx + 64, device="cuda")
+            lens = torch.full((B,), ctx, dtype=torch.int32, device="cuda")
+            toks = torch.zeros(B, dtype=torch.long, device="cuda")
+
+            def decode():
+                for _ in range(SIM_DECODE_STEPS):
+                    model.decode(params, toks, cache, lens)
+                torch.cuda.synchronize()
+            host_ms, (busy_ms, _, _) = host_and_trace(
+                decode, f"sim: decode step at batch {B}, context {ctx}",
+                per=SIM_DECODE_STEPS, top=0)
+            points.append(dict(kind="decode", batch=B, ctx=ctx,
+                               host_s=float(np.median(host_ms)) * 1e-3,
+                               busy_s=busy_ms * 1e-3))
+            del cache
+    return points
+
+
+def unit_terms(cost, point):
+    """(t_compute, t_memory) of a point in the cost model at one chip and
+    unit efficiencies (``CostModel``'s roofline terms)."""
+    from repro_torch.serving.costmodel import InstanceSpec
+    unit = InstanceSpec("unit", 1, compute_eff=1.0, bw_eff=1.0)
+    if point["kind"] == "prefill":
+        return cost._prefill_terms(unit, point["tokens"], point["ctx"])
+    return cost._decode_terms(unit, point["batch"], point["ctx"])
+
+
+def predicted_s(cost, spec, point) -> float:
+    """``CostModel.prefill_time``/``decode_time`` of a point under
+    ``spec``."""
+    if point["kind"] == "prefill":
+        return cost.prefill_time(spec, point["tokens"], point["ctx"])
+    return cost.decode_time(spec, point["batch"], point["ctx"])
+
+
+def fit_derates(cost, points, collective_frac: float):
+    """InstanceSpec's compute_eff, bw_eff and launch_overhead_s fitted by
+    least squares to the points' host times: t = max(t_c / compute_eff,
+    t_m / bw_eff) (1 + collective_frac) + launch_overhead_s.  The two
+    efficiencies are searched over a log grid in (0, 1] (0.001 to 1, 801
+    values each); for each pair the overhead is the closed-form least
+    squares constant, at least 0.  Returns (compute_eff, bw_eff,
+    launch_overhead_s, root mean square error in s)."""
+    terms = np.array([unit_terms(cost, p) for p in points])    # [P, 2]
+    y = np.array([p["host_s"] for p in points])
+    grid = np.geomspace(1e-3, 1.0, 801)
+    tc = terms[:, 0][None, None, :] / grid[:, None, None]
+    tm = terms[:, 1][None, None, :] / grid[None, :, None]
+    roof = np.maximum(tc, tm) * (1.0 + collective_frac)          # [C, M, P]
+    over = np.maximum((y - roof).mean(-1), 0.0)
+    sse = ((y - roof - over[..., None]) ** 2).sum(-1)
+    i, j = np.unravel_index(np.argmin(sse), sse.shape)
+    return (float(grid[i]), float(grid[j]), float(over[i, j]),
+            float(np.sqrt(sse[i, j] / len(points))))
+
+
+def sim_derates(cfg, points) -> None:
+    """(a): the derates fitted to ``points`` beside the committed ones,
+    each point measured beside both predictions.  Gates: each fitted
+    efficiency in (0, 1]; the committed derates predict each measured
+    host time within SIM_PREDICT_FACTOR."""
+    from repro_torch.serving.costmodel import CostModel, InstanceSpec
+    cost = CostModel(cfg)
+    committed = InstanceSpec("h100", 1)
+    ce, be, over, rms = fit_derates(cost, points, committed.collective_frac)
+    fitted = dataclasses.replace(committed, compute_eff=ce, bw_eff=be,
+                                 launch_overhead_s=over)
+    print(f"  sim: derates fitted to {len(points)} points of {cfg.name} "
+          f"(least squares, host clock): compute_eff {ce!r}, bw_eff {be!r},"
+          f" launch_overhead_s {over!r} (rms error {rms!r} s); committed "
+          f"in serving/costmodel.py: compute_eff {committed.compute_eff!r},"
+          f" bw_eff {committed.bw_eff!r}, launch_overhead_s "
+          f"{committed.launch_overhead_s!r}, collective_frac "
+          f"{committed.collective_frac!r} (one card: no collective)")
+    require(0 < ce <= 1 and 0 < be <= 1,
+            f"sim: fitted efficiencies {ce}, {be} outside (0, 1]")
+    for p in points:
+        what = (f"prefill {p['tokens']} tokens" if p["kind"] == "prefill"
+                else f"decode batch {p['batch']} context {p['ctx']}")
+        want = predicted_s(cost, committed, p)
+        print(f"  sim: {what}: host {p['host_s']!r} s (busy "
+              f"{p['busy_s']!r} s); predicted, fitted "
+              f"{predicted_s(cost, fitted, p)!r} s, committed {want!r} s "
+              f"({want / p['host_s']!r} of the host time)")
+        require(1 / SIM_PREDICT_FACTOR <= want / p["host_s"]
+                <= SIM_PREDICT_FACTOR,
+                f"sim: the committed derates predict {what} at {want} s, "
+                f"measured {p['host_s']} s: refit them")
+
+
+def sim_trace_fit(cfg, params, prompts, max_len) -> None:
+    """(b): the engine in dynamic_pd on the engine phase's traffic under
+    FLEX_PROFILE=1, and the reference's LatencyModel fitted to its trace
+    through the registry (``make_predictor("ridge_latency", trace=...)``),
+    with its calibration report."""
+    import tempfile
+
+    from repro_torch.models import build_model
+    from repro_torch.predict import load_samples, make_predictor
+    from repro_torch.serving.engine import RealEngine
+    from repro_torch.serving.request import Request
+    directory = tempfile.mkdtemp(prefix="chip_smoke_trace_")
+    before = {k: os.environ.get(k) for k in ("FLEX_PROFILE",
+                                             "FLEX_PROFILE_DIR")}
+    os.environ.update(FLEX_PROFILE="1", FLEX_PROFILE_DIR=directory)
+    try:
+        reqs = [Request(prompt_len=len(p), max_new_tokens=MAX_NEW,
+                        prompt_tokens=p, arrival_time=0.0) for p in prompts]
+        eng = RealEngine(build_model(cfg), params, mode="dynamic_pd",
+                         max_num_seqs=MAX_NUM_SEQS, max_len=max_len,
+                         device="cuda")
+        try:
+            res = eng.run(reqs, timeout=600)
+        finally:
+            eng.shutdown()
+        require(res["completed"] == N_REQUESTS,
+                f"sim: the traced engine run completed {res['completed']}")
+        path = eng.session.trace_path
+        samples = load_samples(path)
+        model = make_predictor("ridge_latency", trace=path)
+        print(f"  sim: LatencyModel fitted to the dynamic_pd engine trace "
+              f"({len(samples)} ops: "
+              f"{sum(s.phase == 'prefill' for s in samples)} prefill, "
+              f"{sum(s.phase == 'decode' for s in samples)} decode): "
+              f"report {model.report()}")
+    finally:
+        for k, v in before.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        for name in os.listdir(directory):
+            os.remove(os.path.join(directory, name))
+        os.rmdir(directory)
+
+
+def sim_cluster() -> None:
+    """(c): ``run_sim`` for mixtral-8x7b x 1k1k under each of
+    SIM_DEPLOYMENTS at the H100's constants and the committed derates; every
+    request must complete."""
+    from repro_torch.launch.serve import run_sim
+    for deployment in SIM_DEPLOYMENTS:
+        t0 = time.monotonic()
+        res = run_sim("mixtral-8x7b", deployment, "1k1k", verbose=False)
+        print(f"  sim[mixtral-8x7b {deployment} 1k1k]: completed="
+              f"{res['completed']} failed={res['failed']} chips="
+              f"{res['chips']} requests_per_s={res['requests_per_s']!r} "
+              f"output_tokens_per_s={res['output_tokens_per_s']!r} "
+              f"ttft_mean_s={res['ttft_mean_s']!r} "
+              f"ttft_p99_s={res['ttft_p99_s']!r} "
+              f"tpot_mean_s={res['tpot_mean_s']!r} "
+              f"tpot_p99_s={res['tpot_p99_s']!r} (simulated in "
+              f"{time.monotonic() - t0:.1f} s)")
+        require(res["completed"] == 2000 and res["failed"] == 0,
+                f"sim[{deployment}]: {res['completed']} of 2000 completed, "
+                f"{res['failed']} failed")
+
+
+def sim_one_card(cfg, prompts) -> None:
+    """(d): one instance of one card, max_num_seqs MAX_NUM_SEQS, the engine
+    phase's prompts, MAX_NEW new tokens and arrival times, in each of
+    SIM_ENGINE_MODES, beside the engine's measured TTFT and TPOT there.
+    Not a gate: a ratio outside SIM_RATIO_BOUNDS is printed as a fault."""
+    from repro_torch.serving import Cluster, SimConfig
+    from repro_torch.serving.request import Request
+    from repro_torch.serving.simulator import DeploymentSpec
+    lo, hi = SIM_RATIO_BOUNDS
+    for mode in SIM_ENGINE_MODES:
+        reqs = [Request(prompt_len=len(p), max_new_tokens=MAX_NEW,
+                        arrival_time=0.0) for p in prompts]
+        cluster = Cluster(cfg, DeploymentSpec(
+            mode=mode, colocated_instances=1, colocated_chips=1),
+            sim_cfg=SimConfig(max_num_seqs=MAX_NUM_SEQS))
+        sim = cluster.run(reqs, until=600)
+        real = ENGINE_RESULTS[cfg.name, mode]
+        ratios = {k: sim[k] / real[k] for k in ("ttft_mean_s", "ttft_p95_s",
+                                                "tpot_mean_s")}
+        outside = [k for k, r in ratios.items() if not lo <= r <= hi]
+        print(f"  sim[{cfg.name} {mode}, one card]: completed="
+              f"{sim['completed']} ttft_mean_s={sim['ttft_mean_s']!r} "
+              f"ttft_p95_s={sim['ttft_p95_s']!r} "
+              f"tpot_mean_s={sim['tpot_mean_s']!r}; measured "
+              f"ttft_mean_s={real['ttft_mean_s']!r} "
+              f"ttft_p95_s={real['ttft_p95_s']!r} "
+              f"tpot_mean_s={real['tpot_mean_s']!r}; simulated / measured "
+              f"{ratios}" + (f"; FAULT: {', '.join(outside)} outside "
+                             f"[{lo}, {hi}]" if outside else ""))
+        require(sim["completed"] == N_REQUESTS,
+                f"sim[{mode}, one card]: {sim['completed']} completed")
+
+
+def run_sim_phase(traffic, seed: int) -> None:
+    """The sim phase: (a) to (d) on olmo-1b at full width, then the
+    cluster's runs; its seconds printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.monotonic()
+    cfg = get_config(SIM_ARCH)
+    prompts, max_len = traffic[cfg.name]
+    params = build_model(cfg).init(seed, device="cuda")
+    print(f"[sim] {cfg.name} full width: InstanceSpec's derates fitted to "
+          f"its own step times, its engine trace, then the simulator")
+    points = sim_measure(cfg, params, seed)
+    print(f"  (sim: measured {time.monotonic() - t0:.1f} s into the phase)")
+    sim_derates(cfg, points)
+    sim_trace_fit(cfg, params, prompts, max_len)
+    print(f"  (sim: traced {time.monotonic() - t0:.1f} s into the phase)")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    sim_cluster()
+    sim_one_card(cfg, prompts)
+    print(f"[sim] the phase took {time.monotonic() - t0:.1f} s")
 
 
 # ----------------------------------------------------------------- training
@@ -3140,6 +3443,20 @@ def report_dryrun(seconds: float, real) -> None:
         cell = json.load(open(os.path.join(out, f"{arch}__{shape}__{mesh}"
                                                 ".json")))
         print(f"dryrun cell: {DR.cell_line(cell)}")
+        want = DRYRUN_PEAKS[arch, shape, mesh]
+        print(f"  peak of live bytes {cell['mem_temp_bytes']} on torch "
+              f"{cell['torch_version']}, the CPU's torch 2.13 {want}")
+        require(cell["mem_temp_bytes"] == want,
+                f"dryrun {arch} x {shape} x {mesh}: peak "
+                f"{cell['mem_temp_bytes']} bytes, the CPU's {want}: the op "
+                f"sequences differ (tools/peak_live_probe.py)")
+        jax = DRYRUN_JAX_FLOPS.get((arch, shape, mesh))
+        if jax:
+            print(f"  FLOPs a rank {cell['hlo_flops']!r}, JAX's {jax!r} "
+                  f"({cell['hlo_flops'] / jax!r})")
+            require(abs(cell["hlo_flops"] / jax - 1) < DRYRUN_FLOPS_TOL,
+                    f"dryrun {arch} x {shape} x {mesh}: FLOPs "
+                    f"{cell['hlo_flops']} against JAX's {jax}")
     print(f"[dryrun] {1 + len(DRYRUN_CELLS)} processes side by side, "
           f"beside the build, in {seconds:.1f} s")
 
@@ -3365,6 +3682,10 @@ def main() -> int:
     del params
     gc.collect()
     torch.cuda.empty_cache()
+
+    # the simulator: InstanceSpec's derates against olmo-1b's own step
+    # times, then the cluster simulation on the H100's cost model
+    run_sim_phase(traffic, args.seed)
 
     # 6. training: olmo-1b, then gemma2-2b (the backward at D = 256 under
     # its softcap), then mamba2-780m (the SSD scan and its backward), then

@@ -387,13 +387,21 @@ def per_rank(fn, mesh, args, layouts, out_layout):
 def einsum_per_rank(eq: str, a, b):
     """``torch.einsum(eq, a, b)`` of two operands.  On ``DTensor``s each
     rank multiplies its own shards (``per_rank``), laid out mesh dim by
-    mesh dim as GSPMD lays out a dot: the letter the first operand shards
-    there (else the second's) is sharded there in both operands that
-    carry it, the other operand gathered along that mesh dim; a partial
-    operand is reduced first.  The product is sharded where that letter
-    survives and partial where it is contracted.  DTensor's own einsum
-    flattens the operands' dims, which some torch versions cannot do for
-    a sharded dim behind another."""
+    mesh dim as GSPMD lays out a dot: one letter is sharded there in both
+    operands that carry it, the other operand re-laid along that mesh dim
+    (gathered if it lacks the letter); a partial operand is reduced
+    first.  The product is sharded where that letter survives and partial
+    where it is contracted.  The letter is the one an operand already
+    shards there, the first operand's where both do, each a different
+    one, unless the first's is contracted: then it is the cheaper by bytes
+    (``_relayout_bytes``), the second's where moving the first operand
+    and reducing the product moves fewer bytes than moving the second.
+    So a decode step's attention output, split by heads, multiplies an
+    FSDP weight's blocks in place instead of re-laying the weight by
+    heads; a letter the product keeps (the batch) keeps its layout, which
+    the layers after it expect.  DTensor's own einsum flattens the
+    operands' dims, which some torch versions cannot do for a sharded dim
+    behind another."""
     import torch
     from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
     if not isinstance(a, DTensor) and not isinstance(b, DTensor):
@@ -407,12 +415,19 @@ def einsum_per_rank(eq: str, a, b):
         n = (a.dim() - len(sa.replace("...", ""))) if "..." in sa else \
             (b.dim() - len(sb.replace("...", "")))
         sa, sb, out = (t.replace("...", extra[:n]) for t in (sa, sb, out))
-    lay_a, lay_b, lay_o = [], [], []
+
+    def letter(t, s, i):
+        p = t.placements[i]
+        return s[p.dim] if isinstance(p, Shard) else None
+    letters = [letter(a, sa, i) or letter(b, sb, i) for i in range(mesh.ndim)]
     for i in range(mesh.ndim):
-        def letter(t, s):
-            p = t.placements[i]
-            return s[p.dim] if isinstance(p, Shard) else None
-        L = letter(a, sa) or letter(b, sb)
+        La, Lb = letter(a, sa, i), letter(b, sb, i)
+        if La and Lb and La != Lb and La not in out and _relayout_bytes(
+                mesh, i, Lb, (sb, b), (sa, a), out, letters) < \
+                _relayout_bytes(mesh, i, La, (sa, a), (sb, b), out, letters):
+            letters[i] = Lb
+    lay_a, lay_b, lay_o = [], [], []
+    for L in letters:
         for s, lay in ((sa, lay_a), (sb, lay_b)):
             lay.append(Shard(s.index(L)) if L and L in s else Replicate())
         lay_o.append(Shard(out.index(L)) if L and L in out else
@@ -420,6 +435,38 @@ def einsum_per_rank(eq: str, a, b):
     return per_rank(lambda x, y: torch.einsum(f"{sa},{sb}->{out}", x, y),
                     mesh, (a, b), (tuple(lay_a), tuple(lay_b)),
                     tuple(lay_o))
+
+
+def replicated(x):
+    """``x`` with the partial sums it holds all-reduced, its other
+    placements kept (a plain tensor as it is)."""
+    from torch.distributed.tensor import Partial, Replicate
+    if not is_dtensor(x):
+        return x
+    return x.redistribute(x.device_mesh, tuple(
+        Replicate() if isinstance(p, Partial) else p for p in x.placements))
+
+
+def _relayout_bytes(mesh, i, L, kept, moved, out, letters) -> float:
+    """The bytes a rank moves along mesh dim ``i`` of size g when the
+    einsum shards letter ``L`` there, which the ``kept`` operand already
+    shards ((letters, DTensor) pairs): the ``moved`` operand is re-laid,
+    by an all-to-all (its local bytes) if it carries ``L``, else gathered
+    ((g - 1) times its local bytes), and a contracted ``L`` leaves a
+    partial product to all-reduce (2 (g - 1) / g of its local bytes, the
+    product split as ``letters`` gives for the other mesh dims)."""
+    g = mesh.size(i)
+    (sm, m), (sk, k) = moved, kept
+    local = m.to_local()
+    nbytes = local.numel() * local.element_size()
+    cost = float(nbytes if L in sm else (g - 1) * nbytes)
+    if L not in out:
+        size = {c: n for s, t in (moved, kept) for c, n in zip(s, t.shape)}
+        n_out = math.prod(size[c] for c in out)
+        n_out /= math.prod(mesh.size(j) for j, c in enumerate(letters)
+                           if j != i and c and c in out)
+        cost += 2 * (g - 1) / g * n_out * local.element_size()
+    return cost
 
 
 def shard_dims(x, dim: int) -> list:

@@ -40,14 +40,14 @@ For each cell this gives, per rank:
     argument (the parameters and moments, updated in place; the caches,
     written in place), as XLA's memory analysis reports them;
   * ``mem_temp_bytes``: the largest sum of local bytes the step itself
-    held at once (``StepCounter.peak_live_bytes``).  It depends on the
-    torch that traces it (``torch_version``, in the record): torch 2.11
-    keeps each repeat's residual stream live into the backward pass and
-    through a prefill, where 2.13 frees it (``tools/peak_live_probe.py``);
+    held at once (``StepCounter.peak_live_bytes``), each storage live from
+    the op that makes it to the last op that touches it, or to the step's
+    end if the step returns it: liveness from the op stream, so the
+    figure does not depend on when the tracing torch frees a tensor;
   * ``hlo_flops``/``hlo_bytes``/``collective_bytes`` from
     ``step_analysis`` (the reference's key names, so
     ``benchmarks/roofline.py``'s reader takes the JSON);
-  * ``compile_s``: the trace's seconds (one and two repeats of the
+  * ``compile_s``: the trace's seconds (two and three repeats of the
     layer stack, carried to all of them, for a training or prefill step:
     ``trace_cell``);
 
@@ -143,24 +143,26 @@ LINEAR_FIELDS = ("param_bytes", "opt_state_bytes", "cache_bytes",
                  "mem_alias_bytes", "hlo_flops", "hlo_bytes", "hlo_dots")
 
 
-def _extrapolate(one: Dict, two: Dict, n: int) -> Dict:
-    """The step at ``n`` repeats from the steps at one and two:
-    x(n) = x(1) + (n - 1) (x(2) - x(1)), field by field (an integer stays
-    an integer)."""
+def _extrapolate(two: Dict, three: Dict, n: int) -> Dict:
+    """The step at ``n`` repeats from the steps at two and three:
+    x(n) = x(2) + (n - 2) (x(3) - x(2)), field by field (an integer stays
+    an integer).  From two repeats on, every repeat adds the same ops; the
+    first may not (a prefill's RoPE tables die in it when no repeat
+    follows, so its peak is lower)."""
     def line(a, b):
-        return a + (n - 1) * (b - a)
-    out = dict(one)
+        return a + (n - 2) * (b - a)
+    out = dict(two)
     for k in LINEAR_FIELDS:
-        if k in one:
-            out[k] = line(one[k], two[k])
+        if k in two:
+            out[k] = line(two[k], three[k])
     out["collective_bytes"] = {
-        k: line(one["collective_bytes"].get(k, 0.0),
-                two["collective_bytes"].get(k, 0.0))
-        for k in sorted(set(one["collective_bytes"])
-                        | set(two["collective_bytes"]))}
+        k: line(two["collective_bytes"].get(k, 0.0),
+                three["collective_bytes"].get(k, 0.0))
+        for k in sorted(set(two["collective_bytes"])
+                        | set(three["collective_bytes"]))}
     out["op_counts"] = {
-        k: line(one["op_counts"].get(k, 0), two["op_counts"].get(k, 0))
-        for k in sorted(set(one["op_counts"]) | set(two["op_counts"]))}
+        k: line(two["op_counts"].get(k, 0), three["op_counts"].get(k, 0))
+        for k in sorted(set(two["op_counts"]) | set(three["op_counts"]))}
     return out
 
 
@@ -175,11 +177,12 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mcfg: MeshConfig, *,
 
     The layer stack is a Python loop, unrolled as it is traced, so a step
     of R repeats of the block pattern is R copies of one repeat's ops, on
-    the same shapes and layouts.  With R > 2 a training or prefill step
-    is traced at one and two repeats and every count is carried to R
+    the same shapes and layouts.  With R > 3 a training or prefill step
+    is traced at two and three repeats and every count is carried to R
     along that line, as the reference multiplies a ``while`` body by its
     trip count (``hlo_analysis.py``); its peak of live bytes lies in the
-    stack and grows along the line too.  A decode step (one token a
+    stack and grows along the line too (by each repeat's saved residual
+    in training, by nothing in a prefill).  A decode step (one token a
     layer, cheap to trace, its peak possibly in the head) traces all R.
     The rules and the AdamW moment dtype are the full model's."""
     import torch
@@ -193,20 +196,20 @@ def trace_cell(cfg: ModelConfig, shape: ShapeConfig, mcfg: MeshConfig, *,
     if train and moment_dtype is None:
         moment_dtype = "bfloat16" if cfg.param_count() > 5e10 else "float32"
     R = _repeats(cfg)
-    cut = R > 2 and shape.kind != ShapeKind.DECODE
+    cut = R > 3 and shape.kind != ShapeKind.DECODE
     t0 = time.time()
     with fake_world(mcfg.num_devices):
         mesh = _mesh(mcfg)
         if cut:
             info = _extrapolate(*(
                 _trace_step(_with_repeats(cfg, r), shape, mesh, rules,
-                            moment_dtype) for r in (1, 2)), R)
+                            moment_dtype) for r in (2, 3)), R)
         else:
             info = _trace_step(cfg, shape, mesh, rules, moment_dtype)
     info.update(seq_len=shape.seq_len, global_batch=shape.global_batch,
                 torch_version=torch.__version__,
                 tp=dict(zip(mcfg.axes, mcfg.shape)).get("model", 1),
-                traced_repeats=[1, 2] if cut else "all",
+                traced_repeats=[2, 3] if cut else "all",
                 compile_s=round(time.time() - t0, 1))
     return info
 
@@ -277,6 +280,7 @@ def _trace_step(cfg: ModelConfig, shape: ShapeConfig, mesh, rules,
     with set_active(mesh, rules), implicit_replication(), counter, \
             counter.naming_failures(), torch.set_grad_enabled(train):
         out = step(*args)
+    counter.keep(out)
     roof = counter.result()
     return dict(
         mem,

@@ -33,18 +33,21 @@ It returns the three per-rank numerators ``HloRoofline`` returns:
 
 and a count of each local op kind, beside ``dot_count``.  ``loop_count``
 is 0: no step here has a loop.  ``peak_live_bytes`` is the largest sum of
-bytes held at once by the storages the step created (each freed when its
-last tensor dies), which the dry-run reports as its temporary memory.
-It depends on torch's version: each version frees the step's tensors
-when its own code lets go of them (``tools/peak_live_probe.py``).
+bytes held at once by the storages the step created, which the dry-run
+reports as its temporary memory.  It is taken from the op stream alone,
+as a compiler's buffer assignment takes it: a storage is live from the op
+that makes it to the last op that reads or writes it (through any view),
+or to the step's end if the step returns it (``keep``).  When Python
+lets go of a tensor plays no part, so the figure depends only on the
+sequence of local ops, not on the torch version that traced them.
 """
 from __future__ import annotations
 
 import collections
 import contextlib
 import dataclasses
-import weakref
-from typing import Dict
+import math
+from typing import Dict, List
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -131,9 +134,14 @@ class StepCounter(TorchDispatchMode):
         super().__init__()
         self.out = StepRoofline()
         self._ops = collections.Counter()
-        self._live = 0
+        self._pos = 0           # the local ops counted so far
+        # each storage the step made, by its StorageImpl's address: [the
+        # op that made it, the last op that touched it, bytes]; the
+        # storages themselves are held (``meta`` shards: no memory), so no
+        # address is made twice within a step
+        self._ranges: Dict[int, List] = {}
+        self._held: List = []
         self.last_op = ""       # the last DTensor op, to name a failure
-
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
@@ -166,6 +174,8 @@ class StepCounter(TorchDispatchMode):
         ns, _, name = func._schema.name.partition("::")
         self._ops[name] += 1
         ins = list(_tensors((args, kwargs)))
+        self._pos += 1
+        self._touch(ins)    # an output's own storage is an input's or new
         packet = func._overloadpacket
         if packet in flop_registry:
             self.out.flops += flop_registry[packet](*args, **kwargs,
@@ -180,6 +190,10 @@ class StepCounter(TorchDispatchMode):
             self.out.collective_bytes += wb
             self.out.collective_by_type[kind] = \
                 self.out.collective_by_type.get(kind, 0.0) + wb
+        if not func.is_view and not any(r.alias_info
+                                        for r in func._schema.returns):
+            for t in outs:                  # new storages, not in-place
+                self._make(t)
         if func.is_view or name in NO_TRAFFIC:
             return
         if name in WINDOW_WRITES:
@@ -187,23 +201,49 @@ class StepCounter(TorchDispatchMode):
         else:
             self.out.hbm_bytes += float(sum(map(_nbytes, ins))
                                         + sum(map(_nbytes, outs)))
-        if not any(r.alias_info for r in func._schema.returns):
-            for t in outs:                  # new storages, not in-place
-                self._hold(t)
 
-    def _hold(self, t: torch.Tensor):
-        """Count ``t``'s storage live until it is freed."""
+    def _touch(self, tensors):
+        """Extend the life of each step-made storage among ``tensors`` to
+        the current op."""
+        for t in tensors:
+            rec = self._ranges.get(t.untyped_storage()._cdata)
+            if rec is not None:
+                rec[1] = self._pos
+
+    def _make(self, t: torch.Tensor):
+        """Open a live range for ``t``'s new storage at the current op."""
         storage = t.untyped_storage()
         n = storage.nbytes()
-        if not n:
-            return
-        self._live += n
-        self.out.peak_live_bytes = max(self.out.peak_live_bytes, self._live)
-        weakref.finalize(storage, self._free, n)
+        if n and storage._cdata not in self._ranges:
+            self._ranges[storage._cdata] = [self._pos, self._pos, n]
+            self._held.append(storage)
 
-    def _free(self, n: int):
-        self._live -= n
+    def keep(self, tree):
+        """Hold every step-made storage in ``tree`` (the step's outputs;
+        a ``DTensor``'s local shard) live to the step's end."""
+        from torch.distributed.tensor import DTensor
+        for t in _tensors(tree):
+            if isinstance(t, DTensor):
+                t = t.to_local()
+            rec = self._ranges.get(t.untyped_storage()._cdata)
+            if rec is not None:
+                rec[1] = math.inf
+
+    def _peak(self) -> int:
+        """The largest sum of bytes of the live ranges over op positions
+        (a range covers its first and its last op)."""
+        events = collections.Counter()
+        for first, last, n in self._ranges.values():
+            events[first] += n
+            if last != math.inf:
+                events[last + 1] -= n
+        live = peak = 0
+        for pos in sorted(events):
+            live += events[pos]
+            peak = max(peak, live)
+        return peak
 
     def result(self) -> StepRoofline:
         self.out.op_counts = dict(sorted(self._ops.items()))
+        self.out.peak_live_bytes = self._peak()
         return self.out

@@ -55,7 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import Activation, ModelConfig
-from repro_torch.distributed.sharding import is_dtensor, shard_act
+from repro_torch.distributed.sharding import (einsum_per_rank, is_dtensor,
+                                              replicated, shard_act)
 from repro_torch.models import layers as L
 
 
@@ -83,20 +84,22 @@ def moe_params(cfg: ModelConfig, gen: Optional[torch.Generator], *, device,
 
 
 def _expert_ffn(cfg: ModelConfig, p: Dict, xe):
-    """xe: [B, E, C, d] -> [B, E, C, d], per-expert FFN."""
-    h = torch.einsum("becd,edf->becf", xe, p["w_up"])
+    """xe: [B, E, C, d] -> [B, E, C, d], per-expert FFN.  On ``DTensor``s
+    (``_moe_reduced``) an up product left partial by a split embed dim is
+    all-reduced before the activation."""
+    def up(w):
+        return replicated(einsum_per_rank("becd,edf->becf", xe, w))
+    h = up(p["w_up"])
     if cfg.activation == Activation.SWIGLU:
-        g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-        h = F.silu(g) * h
+        h = F.silu(up(p["w_gate"])) * h
     elif cfg.activation == Activation.GEGLU:
-        g = torch.einsum("becd,edf->becf", xe, p["w_gate"])
-        h = F.gelu(g, approximate="tanh") * h
+        h = F.gelu(up(p["w_gate"]), approximate="tanh") * h
     elif cfg.activation == Activation.SQUARED_RELU:
         h = torch.square(F.relu(h))
     else:
         h = F.gelu(h, approximate="tanh")
     h = shard_act(h, "batch", "expert", None, "mlp")
-    return torch.einsum("becf,efd->becd", h, p["w_down"])
+    return einsum_per_rank("becf,efd->becd", h, p["w_down"])
 
 
 def _experts(p: Dict) -> list:
@@ -156,16 +159,24 @@ def _onehot_moe(cfg: ModelConfig, p: Dict, xc, r: Routing, C: int,
     experts' part of the sum)."""
     B, s, d = xc.shape
     k = cfg.moe.top_k
-    cap_oh = (r.pos[..., None] == torch.arange(C, device=xc.device)).float()
-    disp = (r.mask[..., experts, None] * cap_oh[:, :, None, :]
-            * r.keep[..., None, None])                       # [B, sk, E, C]
-    combine = disp * r.gate[:, :, None, None]
+    disp, combine = _one_hot(r, C, experts)                 # [B, sk, E, C]
     x_f = torch.repeat_interleave(xc, k, dim=1)              # [B, sk, d]
     xe = torch.einsum("btec,btd->becd", disp.to(xc.dtype), x_f)
     xe = shard_act(xe, "batch", "expert", None, "act_embed")
     ye = _expert_ffn(cfg, p, xe)                             # [B, E, C, d]
     y = torch.einsum("btec,becd->btd", combine.to(xc.dtype), ye)
     return y.reshape(B, s, k, d).sum(dim=2)
+
+
+def _one_hot(r: Routing, C: int, experts: slice):
+    """The one-hot dispatch [N, sk, E, C] of ``r``'s kept slots to the
+    experts ``experts`` and capacity positions, and the combine weights
+    (each slot's dispatch times its gate)."""
+    cap_oh = (r.pos[..., None] == torch.arange(C, device=r.pos.device)
+              ).float()
+    disp = (r.mask[..., experts, None] * cap_oh[:, :, None, :]
+            * r.keep[..., None, None])
+    return disp, disp * r.gate[:, :, None, None]
 
 
 def _host_counts(counts) -> list:
@@ -299,15 +310,21 @@ def _moe_per_rank(cfg: ModelConfig, p: Dict, x, chunk_size: int,
                   dropless: bool):
     """``apply_moe``'s plain path on ``DTensor``s: each rank routes its own
     batch rows (the router gathered) and runs the one-hot dispatch over
-    the experts it holds (the embed dim of their weights gathered, as
-    FSDP does), so its y is its experts' part of the sum (``Partial``
-    over the mesh dims that split the experts, or their mlp dim where
-    the experts are not split); the aux loss is built from the ranks'
-    sums of slot and probability counts.  The ranks that split the
+    the experts it holds, so its y is its experts' part of the sum
+    (``Partial`` over the mesh dims that split the experts, or their mlp
+    dim where the experts are not split); the aux loss is built from the
+    ranks' sums of slot and probability counts.  The ranks that split the
     experts route the same rows alike: each returns 1/n of those sums as
     its part, so both the sums and the router's gradient add up once.
     As GSPMD partitions the one-hot dispatch laid out over batch and
-    experts."""
+    experts.
+
+    Where the experts' embed dim is split too (FSDP), the layout is
+    GSPMD's cheaper of two (``_reduce_cheaper``, from shapes): gather that
+    dim of every expert weight (many rows a rank: a training step or a
+    long prefill), or, where a rank holds few rows (one-token decode),
+    keep the weights in place and reduce partial products
+    (``_moe_reduced``)."""
     from torch.distributed.tensor import Partial, Replicate, Shard
     from repro_torch.distributed.sharding import (block_index, per_rank,
                                                   shard_dims)
@@ -319,6 +336,8 @@ def _moe_per_rank(cfg: ModelConfig, p: Dict, x, chunk_size: int,
     n_e = E // math.prod(mesh.size(i) for i in split_e)
     e0 = block_index(mesh, split_e) * n_e
     experts = slice(e0, e0 + n_e)
+    if _reduce_cheaper(cfg, p, x, chunk_size, dropless, n_e):
+        return _moe_reduced(cfg, p, x, chunk_size, dropless, experts)
     names = sorted(p)                # router, w_down, w_gate?, w_up
 
     def layout(name):
@@ -344,4 +363,100 @@ def _moe_per_rank(cfg: ModelConfig, p: Dict, x, chunk_size: int,
         [tuple(Shard(0) if i in batch else
                Partial() if i in split_e + split_f else Replicate()
                for i in range(mesh.ndim)), summed, summed])
+    return y, _aux(cfg, x, chunk_size, slots, probs)
+
+
+def _reduce_cheaper(cfg: ModelConfig, p: Dict, x, chunk_size: int,
+                    dropless: bool, n_e: int) -> bool:
+    """Whether the expert weights stay in place (``_moe_reduced``): the
+    bytes a rank would reduce, its up (and gate) products' partial sums
+    all-reduced over the mesh dims that split the experts' embed dim
+    (2 (g - 1) / g of them) and its output's embed blocks gathered
+    ((g - 1) / g), are fewer than the bytes it would gather, the rest of
+    that dim of its block of every expert weight ((g - 1) times its
+    shard)."""
+    from repro_torch.distributed.sharding import local_shape, shard_dims
+    mesh = x.device_mesh
+    split_d = shard_dims(p["w_up"], 1)
+    if not split_d:
+        return False
+    g = math.prod(mesh.size(i) for i in split_d)
+    B, S, d = x.shape
+    rows = B // math.prod(mesh.size(i) for i in shard_dims(x, 0)
+                          if i not in split_d)
+    cs = min(chunk_size, S)
+    nc = -(-S // cs)
+    C = capacity(cfg, cs, dropless)
+    f = local_shape(p["w_up"])[2]
+    elt = p["w_up"].element_size()
+    n_up = 1 + ("w_gate" in p)
+    reduce = (2 * (g - 1) / g * n_up * rows * nc * n_e * C * f
+              + (g - 1) / g * rows * S * d) * elt
+    gather = (g - 1) * sum(math.prod(local_shape(p[n])) for n in p
+                           if n != "router") * elt
+    return reduce < gather
+
+
+def _moe_reduced(cfg: ModelConfig, p: Dict, x, chunk_size: int,
+                 dropless: bool, experts: slice):
+    """``_moe_per_rank`` with the expert weights left where FSDP put them,
+    as GSPMD lays out a product whose contraction dim the weight splits:
+    the rows are replicated over the mesh dims that split the embed dim
+    (gathered there if they were split), each rank routes them and
+    dispatches its experts' slots keeping its own block of the embed dim;
+    the expert FFN (``_expert_ffn``) then runs on ``DTensor``s, its up
+    products partial sums reduced before the activation, its down product
+    split along the embed dim, as is each rank's part of y (``Partial``
+    over the mesh dims that split the experts)."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from repro_torch.distributed.sharding import (block_index, per_rank,
+                                                  shard_dims)
+    mesh = x.device_mesh
+    k = cfg.moe.top_k
+    split_e = shard_dims(p["w_up"], 0)
+    split_d = shard_dims(p["w_up"], 1)
+    split_f = shard_dims(p["w_up"], 2)
+    batch = [i for i in shard_dims(x, 0) if i not in split_d]
+    g = math.prod(mesh.size(i) for i in split_d)
+    B, S, d = x.shape
+    cs = min(chunk_size, S)
+    nc = -(-S // cs)
+    d0 = block_index(mesh, split_d) * (d // g)
+    same = math.prod(mesh.size(i) for i in split_e + split_f + split_d)
+
+    def lay(dims):
+        out = [Replicate()] * mesh.ndim
+        for t_dim, mesh_dims in dims.items():
+            for i in mesh_dims:
+                out[i] = Shard(t_dim)
+        return tuple(out)
+
+    def dispatch(xl, router):
+        rows, r, C, slots, probs = _routed(cfg, {"router": router}, xl,
+                                           chunk_size, dropless)
+        disp, combine = _one_hot(r, C, experts)             # [N, sk, e, C]
+        x_f = torch.repeat_interleave(rows[..., d0:d0 + d // g], k, dim=1)
+        xe = torch.einsum("btec,btd->becd", disp.to(xl.dtype), x_f)
+        return xe, combine.to(xl.dtype), slots / same, probs / same
+    summed = tuple(Partial() if i in batch + split_e + split_f + split_d
+                   else Replicate() for i in range(mesh.ndim))
+    xe, combine, slots, probs = per_rank(
+        dispatch, mesh, (x, p["router"]),
+        (lay({0: batch}), (Replicate(),) * mesh.ndim),
+        [lay({0: batch, 1: split_e, 3: split_d}),
+         lay({0: batch, 2: split_e}), summed, summed])
+    ye = _expert_ffn(cfg, p, xe)
+
+    def combined(cl, yl):
+        y = torch.einsum("btec,becd->btd", cl, yl)
+        N = y.shape[0]
+        y = y.reshape(N, cs, k, -1).sum(dim=2)
+        y = y.view(nc, N // nc, cs, -1).transpose(0, 1)
+        return y.reshape(N // nc, nc * cs, -1)[:, :S]
+    y = per_rank(combined, mesh, (combine, ye),
+                 (lay({0: batch, 2: split_e}),
+                  lay({0: batch, 1: split_e, 3: split_d})),
+                 tuple(Shard(0) if i in batch else Shard(2) if i in split_d
+                       else Partial() if i in split_e else Replicate()
+                       for i in range(mesh.ndim)))
     return y, _aux(cfg, x, chunk_size, slots, probs)

@@ -46,16 +46,6 @@ from typing import Dict, List, Optional
 from repro_torch.core.api import Phase
 from repro_torch.sched.context import RouteContext
 
-
-def seg_key(seg) -> str:
-    """Stable, JSON-friendly name for one link segment ("spine:0",
-    "ingress:D1"); a copy of the transport layer's helper, which the port
-    does not carry."""
-    if isinstance(seg, tuple) and len(seg) == 2:
-        return f"{seg[0]}:{seg[1]}"
-    return str(seg)
-
-
 # priority at or above which a request counts as interactive-tier for
 # tier-aware routing tiebreaks (matches ``default_tiers``: interactive=2)
 INTERACTIVE_PRIORITY = 2
@@ -177,6 +167,7 @@ class LeastContendedPolicy(LeastLoadedPolicy):
         lm = getattr(c, "link_model", None)
         if topo is None or lm is None:
             return min(ok, key=lambda i: i.load())
+        from repro_torch.transport.links import seg_key
         per_link = lm.stats().get("per_link", {})
 
         def contention(dst) -> float:

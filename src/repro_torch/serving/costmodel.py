@@ -1,13 +1,14 @@
 """Roofline cost model: per-phase step times for the cluster simulator.
 
 The twin of ``repro/serving/costmodel.py``, the same code apart from its
-import paths and its hardware constants, which are one NVIDIA H100 SXM's
-(NVIDIA's data sheet): 989 TFLOP/s dense bf16, 3.35 TB/s of HBM3, 80 GB of
-it, and NVLink at 900 GB/s a GPU, 450 GB/s each way.  The analytic terms
-are those of the dry-run's roofline (``launch/dryrun.py``); its traced
-FLOPs/bytes can be fed back in through ``calibration`` multipliers so
-simulated times track the traced steps.  ``InstanceSpec``'s derates are
-the reference's, not yet calibrated against the card.
+import paths, its hardware constants and its derates.  The constants are
+one NVIDIA H100 SXM's (NVIDIA's data sheet): 989 TFLOP/s dense bf16,
+3.35 TB/s of HBM3, 80 GB of it, and NVLink at 900 GB/s a GPU, 450 GB/s
+each way.  ``InstanceSpec``'s derates are fitted to the card
+(``chip_smoke.py``'s ``sim`` phase; beside them, the card and the
+shapes).  The analytic terms are those of the dry-run's roofline
+(``launch/dryrun.py``); its traced FLOPs/bytes can be fed back in through
+``calibration`` multipliers so simulated times track the traced steps.
 
 Phase behaviour (paper Figures 1-2):
   * prefill — compute-term dominated (large matmuls over the whole prompt);
@@ -36,12 +37,19 @@ class InstanceSpec:
     """A logical serving instance spanning `chips` devices."""
     name: str
     chips: int
-    # modeled efficiencies (MFU-style derates; calibratable)
-    compute_eff: float = 0.55
-    bw_eff: float = 0.75
-    # fixed per-launch overhead (dispatch + host + collective setup)
-    launch_overhead_s: float = 0.002
-    # fraction of each step spent in non-overlapped collectives (TP/EP)
+    # modeled efficiencies (MFU-style derates; calibratable) and the fixed
+    # per-launch overhead (dispatch + host + collective setup), fitted by
+    # least squares to the host times of olmo-1b at full width on one
+    # card ("NVIDIA H100 80GB HBM3, 700.00 W" by nvidia-smi): prefills of
+    # 128, 512 and 2048 tokens at batch 1 and decode steps at batch 1, 2
+    # and 4 over contexts of 512 and 2048 (``chip_smoke.py``'s sim phase;
+    # rms error 3.0 ms).  The port's host dispatch of ~900 kernels a step
+    # sets the overhead; the memory term absorbs part of it too
+    compute_eff: float = 0.806
+    bw_eff: float = 0.122
+    launch_overhead_s: float = 0.0131
+    # fraction of each step spent in non-overlapped collectives (TP/EP);
+    # the reference's: one card has no collective to fit it to
     collective_frac: float = 0.08
 
 
@@ -160,7 +168,7 @@ class CostModel:
         t = max(self._decode_terms(spec, batch, avg_context))
         return t * (1 + spec.collective_frac) + spec.launch_overhead_s
 
-    # ------------------------------------------------------- vectorized
+    # ------------------------------------------------- vectorized
     # Array evaluation of the same roofline expressions: one NumPy pass
     # over every in-flight op of a device instead of a Python call per op.
     # Each expression below is written in the SAME operand order as its
@@ -284,7 +292,6 @@ class CostModel:
         t_c = flops / (spec.chips * PEAK_FLOPS * spec.compute_eff * core_frac)
         t_m = bytes_ / (spec.chips * HBM_BW * spec.bw_eff)
         return t_m / max(t_c, t_m)
-
 
 __all__ = ["CostModel", "InstanceSpec",
            "PEAK_FLOPS", "HBM_BW", "ICI_BW", "HBM_PER_CHIP"]

@@ -251,7 +251,7 @@ def test_olmo_train_cell_end_to_end(tmp_path):
     from repro_torch.training.train_step import loss_and_grads
     info = run_worker("cell", tmp_path)
     assert info["chips"] == 256 and info["kind"] == "train"
-    assert info["traced_repeats"] == [1, 2]
+    assert info["traced_repeats"] == [2, 3]
     for k in ("param_bytes", "opt_state_bytes", "mem_argument_bytes",
               "mem_output_bytes", "mem_temp_bytes", "mem_alias_bytes",
               "hlo_flops", "hlo_bytes"):
@@ -279,7 +279,7 @@ def test_olmo_train_cell_end_to_end(tmp_path):
 def test_extrapolated_step_equals_the_whole_trace(arch, kind, seq, batch,
                                                   tmp_path):
     """At smoke width on a (2, 2) fake mesh, in a process of its own:
-    ``trace_cell``'s step, traced at one and two repeats of the layer
+    ``trace_cell``'s step, traced at two and three repeats of the layer
     stack and carried to all of them, against ``_trace_step`` of the
     whole stack.  The peak of live bytes is exact once the stack holds
     it: olmo-1b's training step at 8 x 64 peaks in its embedding's
@@ -313,7 +313,7 @@ def test_extrapolated_step_equals_the_whole_trace(arch, kind, seq, batch,
         cwd=ROOT, capture_output=True, text=True, timeout=TIMEOUT_S)
     assert proc.returncode == 0, proc.stderr[-3000:]
     cut, whole = json.loads(path.read_text())
-    assert cut["traced_repeats"] == [1, 2]
+    assert cut["traced_repeats"] == [2, 3]
     for k in DR.LINEAR_FIELDS + ("collective_bytes", "op_counts"):
         if k in whole:
             assert cut[k] == whole[k], k

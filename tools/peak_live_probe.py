@@ -1,113 +1,95 @@
 """What the dry-run's peak of live bytes is made of: one cell traced as
 ``repro_torch.launch.dryrun`` traces it, with ``StepCounter`` recording
-the op (and, for outputs of 100 MiB or more, the model lines) behind
-every storage it holds, and at each new peak the live bytes by op,
-whether the peak falls in the forward or the backward pass, and what
-refers to each large residual-stream ``add`` still live there.
+the op (and, for storages of 100 MiB or more, the model lines) that made
+each storage, and at the step's peak the live ranges that cover it,
+summed by that label, with the op positions where the largest begin and
+end.
 
-    PYTHONPATH=src python tools/peak_live_probe.py [ARCH SHAPE single|multi
-                                                    [collect]]
+    PYTHONPATH=src python tools/peak_live_probe.py [ARCH SHAPE single|multi]
 
 Prints torch's version, the cell's ``mem_temp_bytes``, and for each
 traced step (a training step is traced at one and two repeats of its
-layer stack) the peak and its 12 largest ops.  Run it under two torch
-versions to see where their peaks part.  ``collect`` runs Python's cyclic
-collector before each rise of the peak by 1 % (or 16 MiB), so garbage in
-reference cycles cannot count (and names no holders).  Imports torch and the port
-only; allocates nothing on any device.
+layer stack) its peak, the op position of the peak out of all of the
+step's ops, whether that op ran in the forward or the backward pass, and
+the 12 largest labels live there.  The figure is the op stream's
+liveness (``StepCounter``'s docstring): run it under two torch versions
+and the same figure means the same op sequence.  Imports torch and the
+port only; allocates nothing on any device.
 """
 import collections
-import gc
 import sys
 import traceback
-import weakref
 
 import torch
 
 from repro_torch.launch import dryrun as DR
 from repro_torch.launch import step_analysis as SA
 
-BIG = 100 << 20          # bytes of an output whose making lines are kept
+BIG = 100 << 20          # bytes of a storage whose making lines are kept
 
 
-def describe(o) -> str:
-    """A short name for an object that refers to a live output."""
-    if isinstance(o, (list, tuple)):
-        return f"{type(o).__name__}[{len(o)}]"
-    if isinstance(o, dict):
-        return f"dict keys {list(o)[:4]}"
-    return type(o).__name__
-
-
-def holders(t) -> list:
-    """What refers to ``t``, and what refers to each of those."""
-    here = sys._getframe()
-    return [describe(r) + " <- " + ", ".join(sorted({
-        describe(q) for q in gc.get_referrers(r) if q is not here}))
-        for r in gc.get_referrers(t) if r is not here]
-
-
-def main(arch="olmo-1b", shape="train_4k", mesh="single", collect=""):
+def main(arch="olmo-1b", shape="train_4k", mesh="single"):
     steps = []
 
     class Probe(SA.StepCounter):
         def __init__(self):
             super().__init__()
-            self.live = collections.Counter()
-            self.at_peak = collections.Counter()
-            self.big, self.held, self.phase, self.op = {}, {}, "", ""
+            self.labels = {}           # id of a live range -> its label
+            self.phases = {}           # op position -> forward/backward
+            self.op = ""
             steps.append(self)
 
         def _count(self, func, args, kwargs, result, outs):
             self.op = func._schema.name.partition("::")[2]
+            backward = torch._C._current_graph_task_id() != -1
+            self.phases[self._pos + 1] = "backward" if backward \
+                else "forward"
             super()._count(func, args, kwargs, result, outs)
 
-        def _hold(self, t):
-            n = t.untyped_storage().nbytes()
-            if not n:
+        def _make(self, t):
+            super()._make(t)
+            rec = self._ranges.get(t.untyped_storage()._cdata)
+            if rec is None or rec[0] != self._pos:
                 return
-            op = self.op
-            if collect and self._live + n > max(
-                    1.01 * self.out.peak_live_bytes,
-                    self.out.peak_live_bytes + (16 << 20)):
-                gc.collect()
-            if n >= BIG:
+            label = self.op
+            if rec[2] >= BIG:
                 site = [f"{f.filename.rsplit('/', 1)[-1]}:{f.lineno}"
                         for f in traceback.extract_stack()
                         if "/repro_torch/models/" in f.filename]
-                op = f"{op} @ {' < '.join(reversed(site[-2:]))}"
-                self.big.setdefault(op, []).append(weakref.ref(t))
-            self.live[op] += n
-            peak = self.out.peak_live_bytes
-            super()._hold(t)
-            if self.out.peak_live_bytes > peak:
-                self.at_peak = collections.Counter(self.live)
-                backward = torch._C._current_graph_task_id() != -1
-                self.phase = ("backward" if backward else "forward") \
-                    + f" at {op}"
-                if not collect and (backward
-                                    or not torch.is_grad_enabled()):
-                    self.held = {k: [holders(r()) for r in refs
-                                     if r() is not None]
-                                 for k, refs in self.big.items()
-                                 if self.live[k] and k.startswith("add @")}
-            weakref.finalize(t.untyped_storage(), self._drop, op, n)
-
-        def _drop(self, op, n):
-            self.live[op] -= n
+                label = f"{label} @ {' < '.join(reversed(site[-2:]))}"
+            self.labels[id(rec)] = label
 
     SA.StepCounter = Probe
     info = DR.lower_cell(arch, shape, multi_pod=mesh == "multi")
-    print(f"torch {torch.__version__}: {arch} x {shape} x {mesh}"
-          f"{' (collected)' if collect else ''}: "
+    print(f"torch {torch.__version__}: {arch} x {shape} x {mesh}: "
           f"mem_temp_bytes {info['mem_temp_bytes']}")
     for i, s in enumerate(steps):
-        print(f"step {i}: peak {s.out.peak_live_bytes}, {s.phase}")
-        for op, n in s.at_peak.most_common(12):
-            print(f"  {op:48s} {n}")
-        for op, h in s.held.items():
-            print(f"  held: {op}: {h}")
+        ranges = list(s._ranges.values())
+        events = collections.Counter()
+        for first, last, n in ranges:
+            events[first] += n
+            if last != float("inf"):
+                events[last + 1] -= n
+        live = peak = at = 0
+        for pos in sorted(events):
+            live += events[pos]
+            if live > peak:
+                peak, at = live, pos
+        print(f"step {i}: peak {peak} at op {at} of {s._pos} "
+              f"({s.phases.get(at, '?')})")
+        by_label = collections.Counter()
+        spans = collections.defaultdict(list)
+        for rec in ranges:
+            if rec[0] <= at <= rec[1]:
+                label = s.labels.get(id(rec), "?")
+                by_label[label] += rec[2]
+                spans[label].append((rec[0], rec[1]))
+        for label, n in by_label.most_common(12):
+            first = min(a for a, _ in spans[label])
+            last = max(b for _, b in spans[label])
+            print(f"  {label:56s} {n} ({len(spans[label])} ranges, ops "
+                  f"{first}..{last})")
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:5])
+    main(*sys.argv[1:4])
