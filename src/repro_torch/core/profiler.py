@@ -2,7 +2,6 @@
 
 Collected from the interception layer and daemon:
   * EWMA operator execution time and queue delay per phase,
-  * per-phase token throughput,
   * memory-bandwidth pressure of decode (bytes touched / exec time / HBM peak),
   * device utilization (busy fraction over a sliding horizon).
 
@@ -11,12 +10,14 @@ reads them to steer the prefill/decode dispatch ratio.
 """
 from __future__ import annotations
 
+import bisect
 import collections
 import dataclasses
 import itertools
 import json
 import os
 import threading
+import time
 from typing import Deque, Dict, List, Optional, Tuple
 
 from repro_torch.core.api import OpDescriptor, OpType, Phase
@@ -30,21 +31,12 @@ class PhaseStats:
     ewma_exec: float = 0.0          # seconds
     ewma_queue_delay: float = 0.0
     ewma_bytes: float = 0.0         # bytes touched per op
-    ewma_flops: float = 0.0
-    ops_completed: int = 0
-    tokens_done: int = 0
-    busy_time: float = 0.0
 
     def bandwidth_util(self) -> float:
         """Estimated HBM pressure of this phase's ops (0..1)."""
         if self.ewma_exec <= 0:
             return 0.0
         return min(1.0, self.ewma_bytes / self.ewma_exec / HBM_BW_BYTES)
-
-    def compute_util(self) -> float:
-        if self.ewma_exec <= 0:
-            return 0.0
-        return min(1.0, self.ewma_flops / self.ewma_exec / PEAK_FLOPS)
 
 
 class Profiler:
@@ -66,13 +58,13 @@ class Profiler:
         s.ewma_queue_delay = self._ewma(s.ewma_queue_delay, op.queue_delay)
         if "bytes" in op.meta:
             s.ewma_bytes = self._ewma(s.ewma_bytes, float(op.meta["bytes"]))
-        if "flops" in op.meta:
-            s.ewma_flops = self._ewma(s.ewma_flops, float(op.meta["flops"]))
-        s.ops_completed += 1
-        s.tokens_done += int(op.meta.get("tokens", 0))
-        s.busy_time += op.exec_time
         if op.op == OpType.LAUNCH:
             self._busy_events.append((op.dispatch_time, op.complete_time))
+            # what ended before the horizon adds nothing to a later
+            # device_utilization(now >= complete_time): keep the deque short
+            lo = op.complete_time - self.horizon
+            while self._busy_events and self._busy_events[0][1] < lo:
+                self._busy_events.popleft()
 
     def device_utilization(self, now: float) -> float:
         """Busy fraction over the trailing horizon."""
@@ -85,18 +77,6 @@ class Profiler:
 
     def decode_bandwidth_util(self) -> float:
         return self.stats[Phase.DECODE].bandwidth_util()
-
-    def snapshot(self) -> Dict[str, Dict[str, float]]:
-        return {
-            p.value: {
-                "ewma_exec": s.ewma_exec,
-                "ewma_queue_delay": s.ewma_queue_delay,
-                "bandwidth_util": s.bandwidth_util(),
-                "compute_util": s.compute_util(),
-                "ops": s.ops_completed,
-                "tokens": s.tokens_done,
-            } for p, s in self.stats.items()
-        }
 
 
 # --------------------------------------------------------------- timeline
@@ -113,6 +93,20 @@ def profile_dir() -> str:
 
 _TRACE_IDS = itertools.count(1)
 
+# the Timeline of the session being traced, for code that holds no session
+# (the model's step, a benchmark's readers): set when a Timeline starts,
+# cleared when it is written out; None while FLEX_PROFILE is off
+ACTIVE: Optional["Timeline"] = None
+
+
+def _clock_anchor() -> Tuple[int, int]:
+    """(monotonic ns, Unix ns) read back to back, the Unix reading the
+    mean of two taken around the monotonic one."""
+    a = time.time_ns()
+    m = time.monotonic_ns()
+    b = time.time_ns()
+    return m, (a + b) // 2
+
 
 class Timeline:
     """Per-op timeline recorder → Chrome-trace JSON (PR 9, opt-in).
@@ -127,11 +121,18 @@ class Timeline:
     Capture is OFF unless ``FLEX_PROFILE=1`` — the hot path pays only a
     ``None`` check — and recording is one dict append under a lock, so
     turning it on perturbs (wall-clock) timing but never simulated time.
+
+    The same list holds the host's spans and counters
+    (``repro_torch.core.spans``), on the ops' monotonic clock;
+    :meth:`to_profiler_ns` maps that clock onto torch.profiler's.
     """
 
     def __init__(self):
+        global ACTIVE
         self._lk = threading.Lock()
         self._events: List[dict] = []
+        self._anchors: List[Tuple[int, int]] = [_clock_anchor()]
+        ACTIVE = self
 
     def record(self, device_id: int, op: OpDescriptor) -> None:
         q = op.meta.get("_queue")
@@ -152,13 +153,41 @@ class Timeline:
                 ev["args"][k] = op.meta[k]
         with self._lk:
             self._events.append(ev)
+        step = op.meta.get("_step")     # a traced model step (core/spans.py)
+        if step is not None:
+            step.complete(self, op)
+
+    def add(self, ev: dict) -> None:
+        """Append a span or counter event."""
+        with self._lk:
+            self._events.append(ev)
 
     def events(self) -> List[dict]:
+        anchor = _clock_anchor()
         with self._lk:
+            self._anchors.append(anchor)
             return list(self._events)
+
+    def to_profiler_ns(self, mono_ns: float) -> float:
+        """A time on this timeline's clock (monotonic ns) on the clock
+        torch.profiler stamps CUDA activity with (Unix ns): the offset
+        between the two interpolated between the anchor pairs around it,
+        read when the timeline started and whenever it was read."""
+        with self._lk:
+            anchors = list(self._anchors)
+        i = bisect.bisect_right([m for m, _ in anchors], mono_ns)
+        if i == 0 or i == len(anchors):
+            m, u = anchors[min(i, len(anchors) - 1)]
+            return mono_ns + (u - m)
+        (m0, u0), (m1, u1) = anchors[i - 1], anchors[i]
+        f = (mono_ns - m0) / (m1 - m0)
+        return mono_ns + (u0 - m0) + f * ((u1 - m1) - (u0 - m0))
 
     def dump(self, path: Optional[str] = None) -> str:
         """Write the Chrome-trace file; returns the path written."""
+        global ACTIVE
+        if ACTIVE is self:
+            ACTIVE = None
         if path is None:
             path = os.path.join(
                 profile_dir(),

@@ -62,6 +62,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig, ShapeConfig, \
     ShapeKind
+from repro_torch.core import profiler as _prof
+from repro_torch.core import spans as _spans
 from repro_torch.device import require_device
 from repro_torch.distributed.sharding import (einsum_per_rank, embed_rows,
                                               local_shape, logsumexp_last,
@@ -152,7 +154,9 @@ class Model:
         JAX twin's preferred_element_type=float32).  The head is widened
         to fp32 in chunks of at most LOGITS_CHUNK_BYTES along the vocab,
         each a strip of the head as it lies in memory (rows of the tied
-        [V, d] embedding, columns of an untied [d, V] head)."""
+        [V, d] embedding, columns of an untied [d, V] head).  Inside a
+        traced serving step, a span (``core/spans.py``)."""
+        sp = None if _prof.ACTIVE is None else _spans.model_span("logits")
         cfg = self.cfg
         if cfg.tie_embeddings:
             head, eq, vocab_dim = params["embed"], "...d,vd->...v", 0
@@ -172,9 +176,11 @@ class Model:
                 for i in range(0, V, n)], dim=-1)
         logits = _softcap(logits, cfg.final_logit_softcap)
         if logits.dim() == 3:
-            return shard_act(logits, "batch", None, "act_vocab")
-        if logits.dim() == 2:
-            return shard_act(logits, "batch", "act_vocab")
+            logits = shard_act(logits, "batch", None, "act_vocab")
+        elif logits.dim() == 2:
+            logits = shard_act(logits, "batch", "act_vocab")
+        if sp is not None:
+            sp.close()
         return logits
 
     def _inputs(self, params, batch):

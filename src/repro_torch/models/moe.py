@@ -55,6 +55,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import Activation, ModelConfig
+from repro_torch.core import profiler as _prof
+from repro_torch.core import spans as _spans
 from repro_torch.distributed.sharding import (einsum_per_rank, is_dtensor,
                                               replicated, shard_act)
 from repro_torch.models import layers as L
@@ -181,7 +183,10 @@ def _one_hot(r: Routing, C: int, experts: slice):
 
 def _host_counts(counts) -> list:
     """The per-expert slot counts on the host: the sorted dispatch's one
-    device-to-host read a call."""
+    device-to-host read a call (counted in a traced serving step, as a CUDA
+    graph cannot hold it)."""
+    if _prof.ACTIVE is not None:
+        _spans.readback()
     return counts.tolist()
 
 

@@ -24,6 +24,8 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import Family, ModelConfig
+from repro_torch.core import profiler as _prof
+from repro_torch.core import spans as _spans
 from repro_torch.distributed.sharding import prepend_axis, shard_act
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as M
@@ -159,11 +161,15 @@ def stack_cache_axes(cfg: ModelConfig, max_len: int) -> List[Dict]:
 def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
                  mode: str, positions=None, lengths=None, cache=None,
                  cos=None, sin=None, attn_impl: str = "kernel",
-                 dropless: bool = False):
+                 dropless: bool = False, layer: int = 0):
     """mode: 'full' (prefill / teacher-forced) or 'decode'.  Returns (x,
     aux): aux is an MoE block's load-balancing loss, else None.  Decode
-    routes one token at a time, dropless, as the reference does."""
+    routes one token at a time, dropless, as the reference does.  Inside
+    a traced serving step the mixer and the FFN are each a span
+    (``core/spans.py``), tagged with ``layer``."""
     aux = None
+    sp = None if _prof.ACTIVE is None else _spans.model_span(
+        "attention" if desc.mixer != "mamba" else "mamba", layer=layer)
     h = L.apply_norm(cfg, p["norm_mixer"], x)
     if desc.mixer == "mamba":
         if mode == "decode":
@@ -183,8 +189,12 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
     if cfg.use_post_norm:
         mix = L.apply_norm(cfg, p["post_norm_mixer"], mix)
     x = x + mix
+    if sp is not None:
+        sp.close()
     if desc.ffn == "none":
         return x, aux
+    sp = None if _prof.ACTIVE is None else _spans.model_span(
+        "moe" if desc.ffn == "moe" else "mlp", layer=layer)
     h = L.apply_norm(cfg, p["norm_ffn"], x)
     if desc.ffn == "moe":
         kw = (dict(chunk_size=1, dropless=True) if mode == "decode"
@@ -194,7 +204,10 @@ def _apply_block(cfg: ModelConfig, desc: BlockDesc, p: Dict, x, *,
         y = L.apply_mlp(cfg, p["mlp"], h)
     if cfg.use_post_norm:
         y = L.apply_norm(cfg, p["post_norm_ffn"], y)
-    return x + y, aux
+    x = x + y
+    if sp is not None:
+        sp.close()
+    return x, aux
 
 
 def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
@@ -222,7 +235,7 @@ def stack_forward(cfg: ModelConfig, stacked_params: List[Dict], x, *,
             x, a = _apply_block(cfg, desc, layers[j][r], x, mode="full",
                                 positions=positions, cache=c, cos=cos,
                                 sin=sin, attn_impl=attn_impl,
-                                dropless=dropless)
+                                dropless=dropless, layer=r * len(pat) + j)
             if a is not None:
                 aux = aux + a
         # "act_seq" engages Megatron-style sequence parallelism for the
@@ -252,7 +265,7 @@ def stack_decode(cfg: ModelConfig, stacked_params: List[Dict], x, *,
             x, a = _apply_block(cfg, desc, _layer(stacked_params[j], r), x,
                                 mode="decode", lengths=lengths,
                                 cache=_layer(caches[j], r), cos=cos, sin=sin,
-                                attn_impl=attn_impl)
+                                attn_impl=attn_impl, layer=r * len(pat) + j)
             if a is not None:
                 aux = aux + a
     return x, caches, aux

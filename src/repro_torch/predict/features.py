@@ -58,7 +58,10 @@ def samples_from_events(events: Iterable[dict]) -> List[OpSample]:
         tokens = float(args.get("tokens", 0) or 0)
         if dur <= 0.0 or tokens <= 0.0:
             continue  # bookkeeping ops (event markers) carry no features
-        ctx = float(args.get("ctx", tokens) or tokens)
+        ctx = args.get("ctx", tokens) or tokens
+        if isinstance(ctx, list):   # each row's, stamped only while
+            ctx = tokens            # traced: read as if untraced
+        ctx = float(ctx)
         out.append(OpSample(phase, tokens, ctx, dur))
     return out
 

@@ -261,8 +261,10 @@ class PredictedSJFPolicy(FIFOPolicy):
     def _predicted(self, op: OpDescriptor) -> float:
         if self.latency is not None:
             tokens = float(op.meta.get("tokens", 1) or 1)
-            p = self.latency.predict(op.phase.value, tokens,
-                                     float(op.meta.get("ctx", tokens)))
+            ctx = op.meta.get("ctx", tokens)
+            if isinstance(ctx, list):   # each row's, stamped only while
+                ctx = tokens            # traced: read as if untraced
+            p = self.latency.predict(op.phase.value, tokens, float(ctx))
             if p is not None:
                 return p
         return float(op.meta.get("est_duration", 0.0))

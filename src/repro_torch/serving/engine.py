@@ -60,6 +60,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.core import spans as _spans
 from repro_torch.core.api import Phase
 from repro_torch.core.session import connect
 # The engine consumes the sched policy plane by design; the layering rank
@@ -190,6 +191,7 @@ class RealEngine:
                 f"reference engine has no such path either.  Drive it "
                 f"through Model.prefill/decode")
         self.device = require_device(device)
+        self._cuda = self.device.type == "cuda"
         self.model = model
         self.params = params
         self.mode = mode
@@ -265,6 +267,10 @@ class RealEngine:
                 self, r, self.session.device(p_dev),
                 self.session.daemon(p_dev), self.session.device(d_dev),
                 self.session.daemon(d_dev)))
+        # the session's recorder (FLEX_PROFILE=1), or None: while it is on,
+        # the engine records its spans and counters there and launches each
+        # step as a spans.Step
+        self.timeline = self.session.timeline
         # single-replica conveniences (the v3 attribute names)
         self.client = self.replicas[0].client
         self.daemon = self.replicas[0].daemon
@@ -291,11 +297,16 @@ class RealEngine:
 
     # ------------------------------------------------------------- public
     def submit(self, req: Request) -> None:
+        tl = self.timeline
+        sp = None if tl is None else _spans.Span(tl, "engine.submit",
+                                                 {"req_id": req.req_id})
         with self._lock:
             self.outstanding += 1
             req.arrival_time = req.arrival_time or time.monotonic()
             self.waiting_admission.append(req)
             self._drain_admission_locked()
+        if sp is not None:
+            sp.close()
 
     def run(self, requests: List[Request], timeout: float = 300.0) -> Dict:
         """Submit per arrival offsets (relative seconds) and wait."""
@@ -387,21 +398,31 @@ class RealEngine:
         self._all_done.notify_all()
 
     def _launch_prefill(self, rep: _Replica, req: Request) -> None:  # holds: _lock
+        tl = self.timeline
+        sp = None if tl is None else _spans.Span(tl, "engine.prefill_setup",
+                                                 {"req_id": req.req_id})
         req.state = RequestState.PREFILLING
         req.instance = rep.name
         toks = torch.tensor(req.prompt_tokens, dtype=torch.long,
                             device=self.device)[None, :]
         cache = self.model.init_cache(1, self.max_len, device=self.device)
+        meta = {"tokens": req.prompt_len, "req_id": req.req_id}
+        fn, step = self._prefill_fn, None
+        if tl is not None:
+            fn = step = meta["_step"] = _spans.Step(
+                tl, "prefill", fn, self._cuda, req_id=req.req_id)
         t0 = time.monotonic()
         fut = rep.client.launch(
-            rep.next_prefill_stream(), self._prefill_fn, self.params, toks,
-            cache, phase=Phase.PREFILL,
-            meta={"tokens": req.prompt_len, "req_id": req.req_id})
+            rep.next_prefill_stream(), fn, self.params, toks,
+            cache, phase=Phase.PREFILL, meta=meta)
         fut.add_done_callback(
-            lambda f, r=req, rp=rep, t=t0: self._prefill_done(rp, r, f, t))
+            lambda f, r=req, rp=rep, t=t0, st=step:
+            self._prefill_done(rp, r, f, t, st))
+        if sp is not None:
+            sp.close()
 
     def _prefill_done(self, rep: _Replica, req: Request, fut,
-                      t0: float) -> None:
+                      t0: float, step=None) -> None:
         try:
             logits, single_cache, lens = fut.result()
         except Exception:
@@ -409,23 +430,30 @@ class RealEngine:
                 rep.prefilling_count = max(0, rep.prefilling_count - 1)
                 self._fail_locked(req)
             return
-        tok = int(torch.argmax(logits[0]).item())
-        now = time.monotonic()
-        with self._lock:
-            rep.prefilling_count = max(0, rep.prefilling_count - 1)
-            rep.observe_step(now - t0)
-            req.record_token(now)
-            req.output_tokens.append(tok)
-            if req.done_decoding:
-                self._finish_locked(req)
+        sp = None if step is None else _spans.Span(
+            step.tl, "engine.prefill_done",
+            {"req_id": req.req_id, "op_id": step.op_id})
+        try:
+            tok = int(torch.argmax(logits[0]).item())
+            now = time.monotonic()
+            with self._lock:
+                rep.prefilling_count = max(0, rep.prefilling_count - 1)
+                rep.observe_step(now - t0)
+                req.record_token(now)
+                req.output_tokens.append(tok)
+                if req.done_decoding:
+                    self._finish_locked(req)
+                    return
+            if self.mode == "disagg":
+                self._transfer_kv(rep, req, single_cache, tok)
                 return
-        if self.mode == "disagg":
-            self._transfer_kv(rep, req, single_cache, tok)
-            return
-        with self._lock:
-            rep.decode_pending.append((req, single_cache, tok))
-            self._fill_slots_locked(rep)
-            self._ensure_decode_locked(rep)
+            with self._lock:
+                rep.decode_pending.append((req, single_cache, tok))
+                self._fill_slots_locked(rep)
+                self._ensure_decode_locked(rep)
+        finally:
+            if sp is not None:
+                sp.close()
 
     # --------------------------------------------- disagg: KV cache transfer
     def _kv_chunk_bounds(self, blob_nbytes: int, spec) -> List[tuple]:
@@ -508,13 +536,19 @@ class RealEngine:
             # the in-flight decode holds a snapshot of slot_cache; inserting
             # now would be overwritten when it completes (lost update)
             return
+        tl = self.timeline
         for slot in range(self.max_num_seqs):
             if not rep.decode_pending:
                 break
             if rep.slot_req[slot] is not None:
                 continue
             req, single_cache, tok = rep.decode_pending.pop(0)
+            sp = None if tl is None else _spans.Span(
+                tl, "engine.slot_insert", {"req_id": req.req_id,
+                                           "slot": slot})
             rep.slot_cache = _insert_slot(rep.slot_cache, single_cache, slot)
+            if sp is not None:
+                sp.close()
             rep.slot_req[slot] = req
             rep.lengths[slot] = req.prompt_len
             rep.next_tokens[slot] = tok
@@ -529,15 +563,40 @@ class RealEngine:
         toks = torch.tensor(rep.next_tokens, dtype=torch.long,
                             device=self.device)
         lens = torch.tensor(rep.lengths, device=self.device)
+        meta = {"tokens": rep.active_count}
+        fn, step = self._decode_fn, None
+        tl = self.timeline
+        if tl is not None:
+            rows = [s for s, r in enumerate(rep.slot_req) if r is not None]
+            meta["ctx"] = [int(rep.lengths[s]) for s in rows]
+            meta["req_id"] = [rep.slot_req[s].req_id for s in rows]
+            fn = step = meta["_step"] = _spans.Step(
+                tl, "decode", fn, self._cuda, rows=len(rows))
+            for name, n in (("slots_active", rep.active_count),
+                            ("decode_pending", len(rep.decode_pending)),
+                            ("waiting_admission",
+                             len(self.waiting_admission)),
+                            ("prefilling", rep.prefilling_count)):
+                _spans.counter(tl, name, n)
         t0 = time.monotonic()
         fut = rep.client_d.launch(
-            rep.stream_d, self._decode_fn, self.params, toks,
-            rep.slot_cache, lens, phase=Phase.DECODE,
-            meta={"tokens": rep.active_count})
+            rep.stream_d, fn, self.params, toks,
+            rep.slot_cache, lens, phase=Phase.DECODE, meta=meta)
         fut.add_done_callback(
-            lambda f, rp=rep, t=t0: self._decode_done(rp, f, t))
+            lambda f, rp=rep, t=t0, st=step: self._decode_done(rp, f, t, st))
 
-    def _decode_done(self, rep: _Replica, fut, t0: float) -> None:
+    def _decode_done(self, rep: _Replica, fut, t0: float,
+                     step=None) -> None:
+        sp = None if step is None else _spans.Span(
+            step.tl, "engine.decode_done", {"op_id": step.op_id,
+                                            "rows": step.args["rows"]})
+        try:
+            self._decoded(rep, fut, t0)
+        finally:
+            if sp is not None:
+                sp.close()
+
+    def _decoded(self, rep: _Replica, fut, t0: float) -> None:
         try:
             logits, new_cache = fut.result()
         except Exception:

@@ -108,7 +108,160 @@ EDITS = {
         "HBM_BW_BYTES = 3.35e12      # H100 SXM HBM3 bandwidth (NVIDIA data "
         "sheet)\nPEAK_FLOPS = 989e12         # H100 SXM dense bf16 "
         "tensor-core peak (data sheet)",
-        "the H100's peaks")],
+        "the H100's peaks"),
+        ("  * per-phase token throughput,\n", "",
+         "Profiler: tokens_done, read by nothing, is gone"),
+        ("import collections\n", "import bisect\nimport collections\n",
+         "Timeline.to_profiler_ns: interpolates between clock anchors"),
+        ("import threading\n", "import threading\nimport time\n",
+         "Timeline: clock anchors"),
+        ("""    ewma_bytes: float = 0.0         # bytes touched per op
+    ewma_flops: float = 0.0
+    ops_completed: int = 0
+    tokens_done: int = 0
+    busy_time: float = 0.0
+""", "    ewma_bytes: float = 0.0         # bytes touched per op\n",
+         "PhaseStats: fields read by nothing, updated on every completion"),
+        ("""
+    def compute_util(self) -> float:
+        if self.ewma_exec <= 0:
+            return 0.0
+        return min(1.0, self.ewma_flops / self.ewma_exec / PEAK_FLOPS)
+""", "", "PhaseStats.compute_util: read by nothing"),
+        ("""        if "flops" in op.meta:
+            s.ewma_flops = self._ewma(s.ewma_flops, float(op.meta["flops"]))
+        s.ops_completed += 1
+        s.tokens_done += int(op.meta.get("tokens", 0))
+        s.busy_time += op.exec_time
+        if op.op == OpType.LAUNCH:
+            self._busy_events.append((op.dispatch_time, op.complete_time))
+""", """        if op.op == OpType.LAUNCH:
+            self._busy_events.append((op.dispatch_time, op.complete_time))
+            # what ended before the horizon adds nothing to a later
+            # device_utilization(now >= complete_time): keep the deque short
+            lo = op.complete_time - self.horizon
+            while self._busy_events and self._busy_events[0][1] < lo:
+                self._busy_events.popleft()
+""", "Profiler.on_complete: no unread counters; _busy_events trimmed to "
+         "the horizon (only device_utilization trimmed it, and only the "
+         "simulator calls that, so a serving process grew it for life)"),
+        ("""
+    def snapshot(self) -> Dict[str, Dict[str, float]]:
+        return {
+            p.value: {
+                "ewma_exec": s.ewma_exec,
+                "ewma_queue_delay": s.ewma_queue_delay,
+                "bandwidth_util": s.bandwidth_util(),
+                "compute_util": s.compute_util(),
+                "ops": s.ops_completed,
+                "tokens": s.tokens_done,
+            } for p, s in self.stats.items()
+        }
+""", "", "Profiler.snapshot: read by nothing"),
+        ("""_TRACE_IDS = itertools.count(1)
+""", """_TRACE_IDS = itertools.count(1)
+
+# the Timeline of the session being traced, for code that holds no session
+# (the model's step, a benchmark's readers): set when a Timeline starts,
+# cleared when it is written out; None while FLEX_PROFILE is off
+ACTIVE: Optional["Timeline"] = None
+
+
+def _clock_anchor() -> Tuple[int, int]:
+    \"\"\"(monotonic ns, Unix ns) read back to back, the Unix reading the
+    mean of two taken around the monotonic one.\"\"\"
+    a = time.time_ns()
+    m = time.monotonic_ns()
+    b = time.time_ns()
+    return m, (a + b) // 2
+""", "spans: the process-level accessor and the clock anchors"),
+        ("""    turning it on perturbs (wall-clock) timing but never simulated time.
+    \"\"\"
+
+    def __init__(self):
+        self._lk = threading.Lock()
+        self._events: List[dict] = []
+""", """    turning it on perturbs (wall-clock) timing but never simulated time.
+
+    The same list holds the host's spans and counters
+    (``repro.core.spans``), on the ops' monotonic clock;
+    :meth:`to_profiler_ns` maps that clock onto torch.profiler's.
+    \"\"\"
+
+    def __init__(self):
+        global ACTIVE
+        self._lk = threading.Lock()
+        self._events: List[dict] = []
+        self._anchors: List[Tuple[int, int]] = [_clock_anchor()]
+        ACTIVE = self
+""", "spans: one recorder for ops, spans and counters, reachable from "
+         "code that holds no session"),
+        ("""        with self._lk:
+            self._events.append(ev)
+
+    def events(self) -> List[dict]:
+        with self._lk:
+            return list(self._events)
+""", """        with self._lk:
+            self._events.append(ev)
+        step = op.meta.get("_step")     # a traced model step (core/spans.py)
+        if step is not None:
+            step.complete(self, op)
+
+    def add(self, ev: dict) -> None:
+        \"\"\"Append a span or counter event.\"\"\"
+        with self._lk:
+            self._events.append(ev)
+
+    def events(self) -> List[dict]:
+        anchor = _clock_anchor()
+        with self._lk:
+            self._anchors.append(anchor)
+            return list(self._events)
+
+    def to_profiler_ns(self, mono_ns: float) -> float:
+        \"\"\"A time on this timeline's clock (monotonic ns) on the clock
+        torch.profiler stamps CUDA activity with (Unix ns): the offset
+        between the two interpolated between the anchor pairs around it,
+        read when the timeline started and whenever it was read.\"\"\"
+        with self._lk:
+            anchors = list(self._anchors)
+        i = bisect.bisect_right([m for m, _ in anchors], mono_ns)
+        if i == 0 or i == len(anchors):
+            m, u = anchors[min(i, len(anchors) - 1)]
+            return mono_ns + (u - m)
+        (m0, u0), (m1, u1) = anchors[i - 1], anchors[i]
+        f = (mono_ns - m0) / (m1 - m0)
+        return mono_ns + (u0 - m0) + f * ((u1 - m1) - (u0 - m0))
+""", "spans: a traced step's spans written once its op completes (their "
+         "CUDA events resolved, the op's id known); span and counter "
+         "events; the map onto the device trace's clock"),
+        ("""        \"\"\"Write the Chrome-trace file; returns the path written.\"\"\"
+        if path is None:""", """        \"\"\"Write the Chrome-trace file; returns the path written.\"\"\"
+        global ACTIVE
+        if ACTIVE is self:
+            ACTIVE = None
+        if path is None:""", "spans: a written timeline is no longer the "
+         "active one")],
+    "sched/dispatch.py": [(
+        """            p = self.latency.predict(op.phase.value, tokens,
+                                     float(op.meta.get("ctx", tokens)))
+""", """            ctx = op.meta.get("ctx", tokens)
+            if isinstance(ctx, list):   # each row's, stamped only while
+                ctx = tokens            # traced: read as if untraced
+            p = self.latency.predict(op.phase.value, tokens, float(ctx))
+""", "a decode op's ctx, stamped only while traced, holds each row's "
+        "context length: ignored, so that tracing changes no prediction "
+        "(an untraced decode op carries none)")],
+    "predict/features.py": [(
+        """        ctx = float(args.get("ctx", tokens) or tokens)
+""", """        ctx = args.get("ctx", tokens) or tokens
+        if isinstance(ctx, list):   # each row's, stamped only while
+            ctx = tokens            # traced: read as if untraced
+        ctx = float(ctx)
+""", "a decode op's ctx, stamped only while traced, holds each row's "
+        "context length: ignored, so that a predictor fitted from a "
+        "timeline learns the feature an untraced op supplies")],
     "serving/costmodel.py": [
         ("""Grounded in the DESIGN.md hardware model (TPU v5e: 197 TFLOP/s bf16, 819 GB/s
 HBM, ~50 GB/s/link ICI) and the same analytic terms as EXPERIMENTS.md
