@@ -57,7 +57,12 @@ fallback):
             (the window as a block mask, the cap as score_mod), each held
             against the plain version first; the fastest is the library
             call, the others stand beside it (SDPA without a softcap is
-            timed apart under one: a different function).
+            timed apart under one: a different function).  Then the
+            logits' product (``Model._logits``) at nemotron-4-340b's and
+            mixtral-8x7b's untied heads at 1 and 32 rows: the served one
+            (the bf16 head read once, fp32 sums) against the widened one
+            (argmax equal, within 1e-4 of its norm), both timed beside the
+            bound, with the kernels the served one launches.
 Then for each model, olmo-1b, mamba2-780m, gemma2-2b, starcoder2-3b and
 qwen2-vl-2b at full published width, and at full layer width cut in depth
 (CUT; none of the three fits one card whole) nemotron-4-340b to 4 of its
@@ -251,7 +256,8 @@ ARCHS = ("olmo-1b", "mamba2-780m", "gemma2-2b", "starcoder2-3b",
 # served at full layer width, cut in depth (and jamba's in experts): each
 # matrix keeps its published shape.  nemotron-4-340b's 96 layers hold 341 B
 # parameters; 4 of them, the embedding and the untied head 23.3 B (46.5 GB
-# in bf16; Model._logits widens the head, 18.9 GB in fp32, in 4 GiB strips).
+# in bf16; Model._logits reads the 9.4-GB bf16 head once under inference
+# mode, and widens it to fp32, 18.9 GB, in 4 GiB strips under autograd).
 # mixtral-8x7b's 32 layers hold 46.7 B (93.4 GB); 8 of them 11.9 B.
 # jamba-1.5-large's 72 layers hold 398 B, one 8-layer repeat of its pattern
 # 45.1 B (90.3 GB), and that repeat with 8 of its 16 experts 25.8 B
@@ -428,6 +434,14 @@ SIM_DEPLOYMENTS = ("dynamic", "6p2d")
 SIM_ENGINE_MODES = ("static_colocate", "dynamic_pd")
 SIM_PREDICT_FACTOR = 2.0      # committed derates: each point within 2x
 SIM_RATIO_BOUNDS = (0.5, 2.0)  # sim / measured outside: a fault to record
+
+
+# the logits' product timed at these models' untied heads ([d, V] bf16),
+# at M rows: one prefill's last token (1), a decode step's batch (32); the
+# served product within LOGITS_REL_TOL of the widened one's norm
+LOGITS_ARCHS = ("nemotron-4-340b", "mixtral-8x7b")
+LOGITS_ROWS = (1, 32)
+LOGITS_REL_TOL = 1e-4
 
 
 class SmokeFailure(RuntimeError):
@@ -1416,6 +1430,67 @@ def check_ssd_bwd(gen):
                                "model trains Mamba-2 through ssd_chunked, "
                                "which XLA differentiates"),
                 max_abs_err=main_err, **t, models=extra)
+
+
+def time_logits(gen) -> None:
+    """``Model._logits`` at each LOGITS_ARCHS head and LOGITS_ROWS rows:
+    the product served under inference mode (``bf16_f32``: the bf16 head
+    read once, fp32 sums and logits) beside the widened one the training
+    loss takes (``widened_f32``: the head widened to fp32 in
+    LOGITS_CHUNK_BYTES strips), each timed by time_ms and time_held, the
+    kernels the served one launches with their device ms, and the bound
+    (the head, x and the fp32 logits moved once) with the served
+    product's share of it.  Gates: the served call counts as
+    ``bf16_f32``, and it agrees with the widened one in argmax and within
+    LOGITS_REL_TOL of its norm."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as TM
+    for arch in LOGITS_ARCHS:
+        cfg = get_config(arch)
+        require(not cfg.tie_embeddings, f"{arch}: a tied head")
+        m = build_model(cfg)
+        d, V = cfg.d_model, cfg.vocab_size
+        head = torch.randn(d, V, generator=gen, device="cuda",
+                           dtype=torch.bfloat16).mul_(d ** -0.5)
+        params = {"head": head}
+        for M in LOGITS_ROWS:
+            x = torch.randn(M, d, generator=gen, device="cuda",
+                            dtype=torch.bfloat16)
+
+            def served():
+                return m._logits(params, x)
+
+            def widened():
+                return m._widened_logits(head, "...d,dv->...v", 1, x)
+
+            with torch.inference_mode():
+                before = TM.LOGITS_PRODUCTS["bf16_f32"]
+                got = served()
+                require(TM.LOGITS_PRODUCTS["bf16_f32"] == before + 1,
+                        f"logits {arch} M={M}: not the bf16_f32 product")
+                want = widened()
+                err = rel_err(got, want)
+                require(err < LOGITS_REL_TOL and torch.equal(
+                    got.argmax(-1), want.argmax(-1)),
+                    f"logits {arch} M={M}: {err!r} of the widened product's "
+                    f"norm, or another argmax")
+                del got, want
+                ms, wide_ms = time_ms(served, 50), time_ms(widened, 10)
+                device_ms, host_us = time_held(served, 50)
+                wide_device_ms, _ = time_held(widened, 10)
+                kernels = kernel_device_ms(served, 20)
+            bound_ms, by = bound(2.0 * M * d * V,
+                                 2.0 * d * V + 2.0 * M * d + 4.0 * M * V)
+            print(f"[logits] {arch} head [{d}, {V}] bf16, M={M}: bf16_f32 "
+                  f"ms={ms!r} device_ms={device_ms!r} host_us={host_us!r} "
+                  f"(" + ", ".join(f"{k} {v!r}" for k, v in kernels.items())
+                  + f"); widened_f32 ms={wide_ms!r} "
+                  f"device_ms={wide_device_ms!r}; bound_ms={bound_ms!r} "
+                  f"({by}), {100.0 * bound_ms / device_ms!r} % of the "
+                  f"served device ms; rel diff {err!r}, argmax agrees")
+        del head, params
+        torch.cuda.empty_cache()
 
 
 def kernel_device_ms(call, iters: int):
@@ -3583,6 +3658,7 @@ def main() -> int:
                check_ssd_bwd(gen)]
     for k in kernels:
         print(f"  {k['name']} at {k['shape']}: {times_text(k)}")
+    time_logits(gen)
     print(f"  (kernels checked and timed {time.monotonic() - t_start:.1f} s "
           f"into the run)")
 

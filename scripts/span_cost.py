@@ -42,7 +42,8 @@ E2E = ("ttft_p95_ms", "tpot_p95_ms", "output_tokens_per_s", "setup_s")
 def summarize(events, keep=None):
     """Spans and counters of a timeline's events, by step kind: each
     span's mean and median host time, mean stream time and count a step,
-    the readbacks a step, each counter's mean.  ``keep``: the op ids to
+    the logits' spans counted by the product they name, the readbacks a
+    step, each counter's mean.  ``keep``: the op ids to
     read (all where None, the set-up's first steps among them)."""
     kind = {e["args"]["op_id"]: e["name"].split(":")[0] for e in events
             if e.get("ph") == "X" and e["name"].endswith(":launch")
@@ -50,7 +51,7 @@ def summarize(events, keep=None):
     reqs = {e["args"]["req_id"] for e in events
             if e.get("ph") == "X" and e["args"].get("op_id") in kind
             and e["name"] == "prefill:launch"}
-    host, stream, readbacks, counters = {}, {}, {}, {}
+    host, stream, readbacks, counters, products = {}, {}, {}, {}, {}
     for e in events:
         if e.get("ph") == "C":
             counters.setdefault(e["name"], []).append(e["args"][e["name"]])
@@ -67,6 +68,9 @@ def summarize(events, keep=None):
         else:
             continue
         key = f"{k}/{e['name']}"
+        if "product" in a:              # the logits' product (models/model.py)
+            n = products.setdefault(key, {})
+            n[a["product"]] = n.get(a["product"], 0) + 1
         host.setdefault(key, []).append(e["dur"] / 1e3)
         if "stream_ms" in a:
             stream.setdefault(key, []).append(a["stream_ms"])
@@ -81,6 +85,7 @@ def summarize(events, keep=None):
             "stream_ms": {k: mean(v) for k, v in sorted(stream.items())},
             "a_step": {k: len(v) / steps.get(k.split("/")[0], len(v))
                        for k, v in sorted(host.items())},
+            "products": products,
             "readbacks": {k: mean(v) for k, v in readbacks.items()},
             "counters": {k: mean(v) for k, v in counters.items()}}
 

@@ -17,9 +17,10 @@ counts those.  (DTensor also runs each op once on global-shape
 
 It returns the three per-rank numerators ``HloRoofline`` returns:
 
-  * FLOPs: 2 * M * N * K of each local matmul (``mm``, ``addmm``,
-    ``bmm``, ``baddbmm``; ``einsum``, ``matmul`` and ``linear`` reach
-    these), and the other products ``torch.utils.flop_counter`` knows;
+  * FLOPs: 2 * M * N * K of each local matmul (``mm``, with or without
+    ``out_dtype``, ``addmm``, ``bmm``, ``baddbmm``; ``einsum``,
+    ``matmul`` and ``linear`` reach these), and the other products
+    ``torch.utils.flop_counter`` knows;
   * HBM bytes: operand plus result bytes of every local op that is not a
     view, an upper bound with no fusion, as the reference's; an indexed
     write into a cache (``index_put_``) is charged its update window read

@@ -66,19 +66,24 @@ from repro_torch.core import profiler as _prof
 from repro_torch.core import spans as _spans
 from repro_torch.device import require_device
 from repro_torch.distributed.sharding import (einsum_per_rank, embed_rows,
-                                              local_shape, logsumexp_last,
-                                              shard_act, take_last)
+                                              is_dtensor, local_shape,
+                                              logsumexp_last, shard_act,
+                                              take_last)
 from repro_torch.models import encdec as ED
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
 
 
-# the fp32 copy of the head that a logits call widens, at most this many
-# bytes at a time: two calls at once (disagg's prefill and decode threads
-# on one card) must not hold two whole copies of a large head
-# (nemotron-4-340b's 256000 x 18432 is 18.9 GB in fp32; every other head
-# the port serves is one chunk)
+# the fp32 copy of the head that a widened logits call makes, at most this
+# many bytes at a time: two calls at once must not hold two whole copies
+# of a large head (nemotron-4-340b's 256000 x 18432 is 18.9 GB in fp32;
+# every other head the port serves is one chunk).  Serving on a card
+# reads the bf16 head as stored and makes no copy
 LOGITS_CHUNK_BYTES = 4 << 30
+
+# calls of Model._logits by the product each took (see there), in the
+# manner of the kernels' launch counts
+LOGITS_PRODUCTS = {"bf16_f32": 0, "widened_f32": 0}
 
 CE_CHUNK = 512  # sequence-chunked cross-entropy (bounds the logits buffer)
 
@@ -151,29 +156,42 @@ class Model:
 
     def _logits(self, params, x):
         """x: [..., d] -> logits [..., V] (fp32 products and sums, as the
-        JAX twin's preferred_element_type=float32).  The head is widened
-        to fp32 in chunks of at most LOGITS_CHUNK_BYTES along the vocab,
-        each a strip of the head as it lies in memory (rows of the tied
-        [V, d] embedding, columns of an untied [d, V] head).  Inside a
-        traced serving step, a span (``core/spans.py``)."""
-        sp = None if _prof.ACTIVE is None else _spans.model_span("logits")
+        JAX twin's preferred_element_type=float32).  Two products, by what
+        the call can observe (``LOGITS_PRODUCTS`` counts each):
+
+        * ``bf16_f32``: a plain bf16 head and bf16 ``x`` on a card with
+          grad disabled (``prefill``/``decode`` under inference mode): one
+          ``mm`` that reads the bf16 operands as stored, the head once,
+          and sums and writes the logits in fp32 (each bf16 x bf16
+          product is exact in fp32; the sums run in the tensor cores'
+          fp32 accumulators, which ``tests/test_torch_cuda.py`` holds
+          within 1e-4 of the fp64 product's norm, below any bf16 partial
+          sum).
+        * ``widened_f32``: everything else (the training loss under
+          autograd, a vocab-sharded ``DTensor`` head, the CPU, ``meta``
+          shapes): the head widened to fp32 in chunks of at most
+          LOGITS_CHUNK_BYTES along the vocab, each a strip of the head as
+          it lies in memory (rows of the tied [V, d] embedding, columns of
+          an untied [d, V] head).
+
+        Inside a traced serving step, a span (``core/spans.py``) that
+        names the product."""
         cfg = self.cfg
         if cfg.tie_embeddings:
             head, eq, vocab_dim = params["embed"], "...d,vd->...v", 0
         else:
             head, eq, vocab_dim = params["head"], "...d,dv->...v", 1
-        V = head.shape[vocab_dim]
-        n = max(1, LOGITS_CHUNK_BYTES // (4 * cfg.d_model))
-        xf = x.float()
-        if local_shape(head)[vocab_dim] <= n:
-            # the whole head (a rank's shard of it, under a DTensor
-            # layout) in one product: no concatenation along the vocab,
-            # which a vocab-sharded DTensor could only gather for
-            logits = einsum_per_rank(eq, xf, head.float())
+        product = "bf16_f32" if _reads_bf16(x, head) else "widened_f32"
+        LOGITS_PRODUCTS[product] += 1
+        sp = None if _prof.ACTIVE is None else _spans.model_span(
+            "logits", product=product)
+        if product == "bf16_f32":
+            w = head.t() if vocab_dim == 0 else head        # [d, V]
+            logits = torch.mm(x.reshape(-1, cfg.d_model), w,
+                              out_dtype=torch.float32)
+            logits = logits.view(*x.shape[:-1], w.shape[1])
         else:
-            logits = torch.cat([einsum_per_rank(eq, xf, head.narrow(
-                vocab_dim, i, min(n, V - i)).float())
-                for i in range(0, V, n)], dim=-1)
+            logits = self._widened_logits(head, eq, vocab_dim, x)
         logits = _softcap(logits, cfg.final_logit_softcap)
         if logits.dim() == 3:
             logits = shard_act(logits, "batch", None, "act_vocab")
@@ -182,6 +200,19 @@ class Model:
         if sp is not None:
             sp.close()
         return logits
+
+    def _widened_logits(self, head, eq, vocab_dim, x):
+        V = head.shape[vocab_dim]
+        n = max(1, LOGITS_CHUNK_BYTES // (4 * self.cfg.d_model))
+        xf = x.float()
+        if local_shape(head)[vocab_dim] <= n:
+            # the whole head (a rank's shard of it, under a DTensor
+            # layout) in one product: no concatenation along the vocab,
+            # which a vocab-sharded DTensor could only gather for
+            return einsum_per_rank(eq, xf, head.float())
+        return torch.cat([einsum_per_rank(eq, xf, head.narrow(
+            vocab_dim, i, min(n, V - i)).float())
+            for i in range(0, V, n)], dim=-1)
 
     def _inputs(self, params, batch):
         """(x [B,S,d] bf16, positions): a VLM's precomputed ``embeds`` with
@@ -417,6 +448,14 @@ class Model:
                 axes["labels"] = ("batch", None)
             return inputs, axes
         return {"tokens": spec(B, S)}, {"tokens": ("batch", None)}
+
+
+def _reads_bf16(x, head) -> bool:
+    """Whether ``Model._logits`` can read the head as stored: plain
+    (not ``DTensor``) bf16 ``x`` and head on a card, grad disabled."""
+    return (not torch.is_grad_enabled() and head.is_cuda
+            and head.dtype == torch.bfloat16 and x.dtype == torch.bfloat16
+            and not is_dtensor(head) and not is_dtensor(x))
 
 
 def _device(device) -> torch.device:

@@ -1659,6 +1659,69 @@ def test_mixed_dtype_cross_attention_takes_the_fp32_kernel(cuda):
     close(got, want, **tol_for("bfloat16"))
 
 
+# the logits' product at nemotron-4-340b's width over a slice of its vocab
+LOGITS_K, LOGITS_V = 18432, 32768
+# ||got - want|| / ||want|| against the fp64 product of the same bf16
+# values: fp32 sums meet it by far, a single bf16 rounding of partial sums
+# breaks it by far (test_logits_read_the_bf16_head_with_fp32_sums)
+LOGITS_REL_TOL = 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tied", [False, True])
+@pytest.mark.parametrize("M", [1, 32])
+def test_logits_read_the_bf16_head_with_fp32_sums(cuda, M, tied):
+    """``Model._logits`` under inference mode on a plain bf16 head: one
+    product of the bf16 operands as stored, summed and written in fp32.
+    At K = 18432 over 32768 vocab rows (the untied [d, V] head and the
+    tied [V, d] embedding), against the fp64 product of the same bf16
+    values, ||err|| / ||want|| stays under LOGITS_REL_TOL = 1e-4 (on an
+    H100 2.10e-5 in every case, the fp32 accumulation of its tensor
+    cores), where two halves of K each summed exactly and rounded to bf16
+    before they are added read 1.64e-3 to 1.66e-3: no bf16 partial sum
+    enters, whatever ``allow_bf16_reduced_precision_reduction`` says.
+    The argmax agrees with the widened fp32 product's, the call counts as
+    ``bf16_f32``, and with grad enabled the same call widens the head
+    instead."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.models import model as TM
+    cfg = dataclasses.replace(get_config("nemotron-4-340b"),
+                              vocab_size=LOGITS_V, tie_embeddings=tied)
+    m = build_model(cfg)
+    rng = np.random.default_rng(M + 2 * tied)
+    x = on(cuda, rng.standard_normal((M, LOGITS_K), np.float32),
+           torch.bfloat16)
+    w = on(cuda, rng.standard_normal((LOGITS_K, LOGITS_V), np.float32)
+           / LOGITS_K ** 0.5, torch.bfloat16)
+    params = {"embed": w.t().contiguous()} if tied else {"head": w}
+    want = x.double() @ w.double()
+
+    def err64(got):
+        return float((got.double() - want).norm() / want.norm())
+
+    half = LOGITS_K // 2
+    bf16_halves = sum((x[:, s].double() @ w[s].double()).bfloat16().double()
+                      for s in (slice(0, half), slice(half, None)))
+    before = dict(TM.LOGITS_PRODUCTS)
+    with torch.inference_mode():
+        got = m._logits(params, x)
+    assert TM.LOGITS_PRODUCTS["bf16_f32"] == before["bf16_f32"] + 1
+    assert TM.LOGITS_PRODUCTS["widened_f32"] == before["widened_f32"]
+    assert got.dtype == torch.float32 and got.shape == (M, LOGITS_V)
+    err, err_bf16 = err64(got), err64(bf16_halves)
+    assert err < LOGITS_REL_TOL < err_bf16
+    with torch.enable_grad():
+        widened = m._logits(params, x)
+    assert TM.LOGITS_PRODUCTS["bf16_f32"] == before["bf16_f32"] + 1
+    assert TM.LOGITS_PRODUCTS["widened_f32"] == before["widened_f32"] + 1
+    print(f"M={M} tied={tied}: bf16_f32 {err!r}, widened_f32 "
+          f"{err64(widened)!r}, bf16 partial sums {err_bf16!r}")
+    assert err64(widened) < LOGITS_REL_TOL
+    assert torch.equal(got.argmax(-1), widened.argmax(-1))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("arch", ["mixtral-8x7b", "seamless-m4t-medium",
                                   "jamba-1.5-large-398b"])

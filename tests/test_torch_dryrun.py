@@ -237,6 +237,23 @@ def test_step_counter_on_known_products(tmp_path):
     assert rep["collective_bytes"] == 0
 
 
+def test_step_counter_counts_the_mixed_dtype_product_as_mm():
+    """``mm`` with ``out_dtype`` (``aten::mm.dtype``: bf16 operands, an
+    fp32 result, the served logits' product) counts as a product like
+    ``mm``, its result at fp32's four bytes an element."""
+    M, K, N = 8, 16, 32
+    a = torch.empty(M, K, dtype=torch.bfloat16, device="meta")
+    b = torch.empty(K, N, dtype=torch.bfloat16, device="meta")
+    with SA.StepCounter() as counter:
+        c = torch.mm(a, b, out_dtype=torch.float32)
+    counter.keep(c)
+    r = counter.result()
+    assert c.dtype == torch.float32
+    assert r.flops == 2 * M * K * N and r.dot_count == 1
+    assert r.hbm_bytes == 2 * (M * K + K * N) + 4 * M * N
+    assert r.op_counts == {"mm": 1}
+
+
 def test_wire_bytes_factors():
     assert SA.wire_bytes("all-reduce", 4, 100.0) == 150.0
     assert SA.wire_bytes("all-gather", 4, 100.0) == 75.0

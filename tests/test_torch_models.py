@@ -363,6 +363,39 @@ def test_logits_in_chunks_match_the_whole_head(cfgs, monkeypatch, tied):
     close(got, want, **F32)
 
 
+@pytest.mark.parametrize("where", ["cpu prefill", "cpu autograd", "meta"])
+def test_logits_off_the_card_take_the_widened_product(cfgs, where):
+    """Off a card (a CPU prefill under inference mode, ``meta`` shapes) and
+    under autograd, ``Model._logits`` widens the head: each call adds one
+    to ``LOGITS_PRODUCTS["widened_f32"]`` and nothing to ``"bf16_f32"``,
+    the product that reads a bf16 head as stored on a card."""
+    from repro_torch.models import model as TM
+    cfg = cfgs[1]
+    m = build_model(cfg)
+    dev = "meta" if where == "meta" else "cpu"
+    params = m.init(0, device=dev)
+    before = dict(TM.LOGITS_PRODUCTS)
+    if where == "cpu prefill":
+        toks = torch.arange(8).reshape(1, 8) % cfg.vocab_size
+        logits, _, _ = m.prefill(params, {"tokens": toks},
+                                 m.init_cache(1, 8, device="cpu"))
+    else:
+        x = torch.randn(2, 3, cfg.d_model, device=dev).bfloat16()
+        if where == "meta":
+            with torch.inference_mode():
+                logits = m._logits(params, x)
+        else:
+            head = params["embed" if cfg.tie_embeddings else "head"]
+            head.requires_grad_(True)
+            logits = m._logits(params, x)
+            logits.sum().backward()
+            assert head.grad is not None
+    assert logits.dtype == torch.float32
+    assert logits.shape[-1] == cfg.vocab_size
+    assert TM.LOGITS_PRODUCTS["widened_f32"] == before["widened_f32"] + 1
+    assert TM.LOGITS_PRODUCTS["bf16_f32"] == before["bf16_f32"]
+
+
 def test_kernel_and_plain_impls_agree_on_cpu(models, cfgs):
     """attn_impl='kernel' (the kernels' plain versions on the CPU) and
     attn_impl='plain' (the JAX model's own attention) give the same model."""

@@ -276,8 +276,9 @@ def test_traced_ctx_changes_no_prediction(traced):
 
 
 def test_span_cost_summary_of_a_traced_run(mixtral, traced):
-    """``scripts/span_cost.py``'s summary: each span a step, the host
-    readbacks a step, the counters' means at each decode launch."""
+    """``scripts/span_cost.py``'s summary: each span a step, the logits'
+    product (widened on the CPU), the host readbacks a step, the
+    counters' means at each decode launch."""
     path = Path(__file__).resolve().parents[1] / "scripts" / "span_cost.py"
     spec = importlib.util.spec_from_file_location("span_cost", path)
     span_cost = importlib.util.module_from_spec(spec)
@@ -291,6 +292,7 @@ def test_span_cost_summary_of_a_traced_run(mixtral, traced):
         assert got["a_step"][f"{kind}/moe"] == layers
         assert got["a_step"][f"{kind}/logits"] == 1
         assert got["host_ms"][f"{kind}/attention"] > 0
+        assert set(got["products"][f"{kind}/logits"]) == {"widened_f32"}
     assert got["readbacks"] == {"prefill": layers, "decode": 0}
     assert got["stream_ms"] == {}           # CUDA events only on a card
     assert set(got["counters"]) == set(COUNTERS)
